@@ -1,0 +1,106 @@
+"""ErasureCode base class: shared padding and decode plumbing.
+
+Re-expresses reference src/erasure-code/ErasureCode.{h,cc}.  The important
+contracts preserved:
+
+* SIMD_ALIGN padding — here ALIGN=64 host-side; the CUDA kernels take
+  any chunk size and mask the ragged tail.
+* encode_prepare (reference ErasureCode.cc:151-186): pad the object with
+  zeros to k*chunk_size and slice into k equal data chunks.
+* decode (reference :212): a dense (k+m, chunk_size) array with zeros
+  in the holes, handed to the codec's decode_chunks.
+"""
+
+from __future__ import annotations
+
+import errno
+
+import numpy as np
+
+from .interface import ErasureCodeError, ErasureCodeInterface, Profile
+
+SIMD_ALIGN = 64  # reference uses 32 (ErasureCode.cc:42); 64 also serves cachelines
+
+
+class ErasureCode(ErasureCodeInterface):
+    k: int = 0
+    m: int = 0
+
+    def __init__(self) -> None:
+        self.profile: Profile | None = None
+
+    # -- init plumbing ------------------------------------------------------
+
+    def init(self, profile: Profile) -> None:
+        self.profile = profile
+
+    # -- geometry -----------------------------------------------------------
+
+    def get_chunk_count(self) -> int:
+        return self.k + self.m
+
+    def get_data_chunk_count(self) -> int:
+        return self.k
+
+    def get_chunk_size(self, stripe_width: int) -> int:
+        alignment = self.get_alignment()
+        per = (stripe_width + self.k - 1) // self.k
+        return -(-per // alignment) * alignment
+
+    def get_alignment(self) -> int:
+        return SIMD_ALIGN
+
+    # -- encode plumbing ----------------------------------------------------
+
+    def encode_prepare(self, data) -> np.ndarray:
+        """Pad to k*chunk_size and slice to a (k, chunk_size) array
+        (reference ErasureCode.cc:151-186)."""
+        buf = np.frombuffer(bytes(data), dtype=np.uint8) \
+            if not isinstance(data, np.ndarray) else data.astype(np.uint8, copy=False).ravel()
+        chunk_size = self.get_chunk_size(buf.size)
+        padded = np.zeros(self.k * chunk_size, dtype=np.uint8)
+        padded[: buf.size] = buf
+        return padded.reshape(self.k, chunk_size)
+
+    def encode(self, want_to_encode, data):
+        chunks = self.encode_prepare(data)
+        parity = self.encode_chunks(chunks)
+        allc = np.concatenate([chunks, parity], axis=0)
+        return {i: allc[i] for i in want_to_encode}
+
+    # -- decode plumbing ----------------------------------------------------
+
+    def _decode_prepare(self, chunks: dict[int, np.ndarray],
+                        chunk_size: int) -> tuple[np.ndarray, list[int]]:
+        """Assemble a dense (k+m, chunk_size) array with zeros in the holes
+        and return (array, erasure list) (reference ErasureCode.cc:212)."""
+        n = self.get_chunk_count()
+        dense = np.zeros((n, chunk_size), dtype=np.uint8)
+        erasures = []
+        for i in range(n):
+            if i in chunks:
+                c = np.asarray(chunks[i], dtype=np.uint8).ravel()
+                if c.size != chunk_size:
+                    raise ErasureCodeError(
+                        errno.EINVAL,
+                        f"chunk {i} size {c.size} != {chunk_size}")
+                dense[i] = c
+            else:
+                erasures.append(i)
+        return dense, erasures
+
+    def decode(self, want_to_read, chunks, chunk_size):
+        dense, erasures = self._decode_prepare(chunks, chunk_size)
+        if not erasures or not (set(want_to_read) - set(chunks)):
+            return {i: dense[i] for i in want_to_read}
+        if self.get_chunk_count() - len(erasures) < self.k:
+            raise ErasureCodeError(
+                errno.EIO, f"cannot decode: {len(erasures)} erasures > m={self.m}")
+        decoded = self.decode_chunks(dense, erasures)
+        return {i: decoded[i] for i in want_to_read}
+
+    def decode_chunks(self, dense: np.ndarray,
+                      erasures: list[int]) -> np.ndarray:
+        """Reconstruct erased rows of the dense (k+m, chunk_size) array.
+        Subclasses implement. (reference ErasureCodeInterface.h:411)"""
+        raise NotImplementedError

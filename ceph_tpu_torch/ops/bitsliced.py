@@ -1,0 +1,435 @@
+"""GF(2^8) parity and fused parity+crc32c on the card: kernel wrappers,
+their plain PyTorch versions, and the multi-extent launch contract.
+
+Two hand-written CUDA kernels (csrc/) carry the EC data plane:
+
+* K1 `gf_bitmatmul` (csrc/gf_bitmatmul.cu) — out = C x data over
+  GF(2^8) for an (r, k) coefficient matrix.  Replaces Pallas kernel #3
+  (`_make_gf_kernel_w32`, ceph_tpu/ops/bitsliced.py:227).  Serves
+  every decode and the plain encode of overwrite extents.
+* K2 `gf_encode_crc` (csrc/gf_encode_crc.cu) — parity plus the crc32c
+  linear part L of every block of all k+m shard rows, one launch.  Two
+  entries with the contracts of Pallas kernels #1 and #2:
+  `fused_hier_call` (L per 4*wb-byte sub-block, ceph_tpu's
+  `_fused_hier_call` :586) and `gf_encode_with_crc_w32` (L per tile,
+  ceph_tpu's `gf_encode_with_crc_pallas_w32` :459).
+
+The coefficient operand of every kernel is the (r, k, 256) product
+table of the matrix (ec/gf.product_tables).  The kernels take bytes:
+the TPU kernels' int32 word packing, sublane bitcasts and expanded
+(32r, 32k) bit-matrices were Mosaic artifacts, and the outputs here are
+the same values in plain layout (parity bytes; L as uint32 values,
+returned as int64 tensors because torch's uint32 support is partial).
+
+A wrapper launches its kernel for CUDA tensors and runs the plain
+version for CPU tensors — only because the tensors lie on the CPU;
+there is no fallback from a failed build or launch.  Each wrapper
+counts its kernel launches in a plain integer attribute (`.launches`).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from . import crc32c_linear as cl
+
+FUSED_TILE = 2048            # flat fused path: bytes per crc tile
+FUSED_WB = 512               # hier path: sub-block, words (2 KiB)
+FUSED_TILE_HIER = 131072     # runs at least this wide take the hier entry
+SMEM_LIMIT = 232448          # bytes of shared memory a block may use
+
+
+# ----------------------------------------------------------------------------
+# operands
+# ----------------------------------------------------------------------------
+
+def tables_tensor(tables: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(r, k, 256) uint8 product tables (ec/gf.product_tables) as the
+    kernels' coefficient operand on `device`."""
+    t = np.ascontiguousarray(tables, dtype=np.uint8)
+    if t.ndim != 3 or t.shape[2] != 256:
+        raise ValueError(f"product tables must be (r, k, 256), got {t.shape}")
+    return torch.from_numpy(t.copy()).to(device)
+
+
+def _bitmatrix_from_tables(tables: torch.Tensor) -> torch.Tensor:
+    """(r, k, 256) product tables -> interleaved (8r, 8k) float32 0/1
+    bit-matrix: out[i*r + ri, j*k + cj] = bit i of c*2^j with c =
+    coefficient (ri, cj), i.e. column j of its 8x8 bit-matrix."""
+    r, k, _ = tables.shape
+    dev = tables.device
+    prods = tables[:, :, [1 << j for j in range(8)]].to(torch.int32)
+    bits = (prods[..., None] >> torch.arange(8, device=dev)) & 1  # r,k,j,i
+    return bits.permute(3, 0, 2, 1).reshape(8 * r, 8 * k) \
+        .to(torch.float32)
+
+
+def _check(name: str, t, device: torch.device, dtype: torch.dtype,
+           ndim: int) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {t.dim()}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned on the device")
+
+
+def _check_operands(tables, chunks) -> tuple[int, int, int]:
+    if not isinstance(tables, torch.Tensor):
+        raise TypeError("tables must be a torch.Tensor")
+    _check("tables", tables, tables.device, torch.uint8, 3)
+    _check("chunks", chunks, tables.device, torch.uint8, 2)
+    r, k, w = tables.shape
+    if w != 256:
+        raise ValueError(f"tables must be (r, k, 256), got {tuple(tables.shape)}")
+    if chunks.shape[0] != k:
+        raise ValueError(f"chunks have {chunks.shape[0]} rows, tables "
+                         f"expect k={k}")
+    return r, k, chunks.shape[1]
+
+
+def _stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ----------------------------------------------------------------------------
+# K1: GF(2^8) matrix apply
+# ----------------------------------------------------------------------------
+
+def gf_bitmatmul_plain(tables: torch.Tensor,
+                       chunks: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1, the bit-plane form of ceph_tpu's
+    gf_bitmatmul_xla: unpack the k rows to 8k 0/1 planes (bit-major,
+    row i*k + j = bit i of chunk j), one float32 matmul with the
+    interleaved bit-matrix, mod 2, pack."""
+    r, k, _ = tables.shape
+    n = chunks.shape[1]
+    dev = chunks.device
+    shifts = torch.arange(8, device=dev, dtype=torch.int32)[:, None, None]
+    bits = ((chunks.to(torch.int32)[None] >> shifts) & 1) \
+        .to(torch.float32).reshape(8 * k, n)
+    prod = (_bitmatrix_from_tables(tables) @ bits).to(torch.int32) & 1
+    out = torch.zeros((r, n), dtype=torch.int32, device=dev)
+    for i in range(8):
+        out |= prod[i * r:(i + 1) * r] << i
+    return out.to(torch.uint8)
+
+
+def gf_bitmatmul(tables: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+    """K1: (r, k, 256) product tables x (k, N) uint8 chunks -> (r, N)
+    uint8.  CUDA tensors launch csrc/gf_bitmatmul.cu; CPU tensors run
+    gf_bitmatmul_plain."""
+    r, k, n = _check_operands(tables, chunks)
+    dev = chunks.device
+    if dev.type == "cpu":
+        return gf_bitmatmul_plain(tables, chunks)
+    if r * k * 256 > SMEM_LIMIT:
+        raise ValueError(f"gf_bitmatmul: {r}x{k} product tables exceed "
+                         "the shared memory of one block")
+    out = torch.empty((r, n), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    from . import _build
+    lib = _build.load()
+    rc = lib.ctt_gf_bitmatmul(tables.data_ptr(), chunks.data_ptr(),
+                              out.data_ptr(), r, k, n,
+                              _stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"gf_bitmatmul launch failed: CUDA error {rc}")
+    gf_bitmatmul.launches += 1
+    return out
+
+
+gf_bitmatmul.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# K2: fused parity + per-block crc32c L
+# ----------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=16)
+def _cmat_w32(wt: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(cl.crc_tile_matrix_w32(wt)).to(
+        device=device, dtype=torch.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def _adv_ops(block: int, device: torch.device) -> torch.Tensor:
+    """(5, 32) uint32 columns of A_{(block/32) * 2^j}, j = 0..4: the
+    warp-fold operators of K2 (stored as int32)."""
+    from ..common import crc32c as _crc
+    piece = block // 32
+    ops = np.stack([_crc.advance_op(piece << j) for j in range(5)])
+    return torch.from_numpy(np.ascontiguousarray(ops).view(np.int32)) \
+        .to(device)
+
+
+def _block_ls_plain(allsh: torch.Tensor, block: int) -> torch.Tensor:
+    """(R, N) uint8 shard rows -> (R, N // block) int64 L-values, via
+    the crc matrix of 4-byte words (tile_crc_bits_w32 over every
+    block)."""
+    r, n = allsh.shape
+    wt = block // 4
+    nb = n // block
+    words = allsh.contiguous().view(torch.int32).reshape(r * nb, wt)
+    bits = cl.tile_crc_bits_w32(words, _cmat_w32(wt, allsh.device))
+    return cl.bits_to_u32(bits).reshape(r, nb)
+
+
+def fused_hier_call_plain(tables: torch.Tensor, chunks: torch.Tensor,
+                          wb: int = FUSED_WB):
+    """Plain version of the hier entry: K1's plain parity, then the
+    per-sub-block L of all k+m rows with subblock_crc_bits_w32 (the
+    level-1 crc of Pallas kernel #1)."""
+    r_tot = tables.shape[0] + tables.shape[1]
+    parity = gf_bitmatmul_plain(tables, chunks)
+    allsh = torch.cat([chunks, parity], dim=0)
+    words = allsh.view(torch.int32)
+    lsub = cl.subblock_crc_bits_w32(words, _cmat_w32(wb, chunks.device), wb)
+    return parity, cl.bits_to_u32(lsub).reshape(r_tot, -1)
+
+
+def gf_encode_with_crc_w32_plain(tables: torch.Tensor, chunks: torch.Tensor,
+                                 tile: int = FUSED_TILE):
+    """Plain version of the flat entry: K1's plain parity, then one L
+    per `tile` bytes of all k+m rows (tile_crc_bits_w32 per tile, the
+    crc of Pallas kernel #2)."""
+    parity = gf_bitmatmul_plain(tables, chunks)
+    allsh = torch.cat([chunks, parity], dim=0)
+    return parity, _block_ls_plain(allsh, tile)
+
+
+def _check_encode_crc(tables, chunks, block: int) -> None:
+    n = _check_operands(tables, chunks)[2]
+    if block % 128 or n % block:
+        raise ValueError(f"gf_encode_crc needs block % 128 == 0 and a "
+                         f"width multiple of the block ({n} % {block})")
+
+
+def _encode_crc_launch(tables, chunks, block: int):
+    m, k, n = _check_operands(tables, chunks)
+    dev = chunks.device
+    smem = m * k * 256 + 256 * 4 + 160 * 4 + (k + m) * (block + 128)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gf_encode_crc: {smem} bytes of shared memory "
+                         "exceed one block's")
+    parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    lout = torch.empty((k + m, n // block), dtype=torch.int64, device=dev)
+    if n == 0:
+        return parity, lout, False
+    from . import _build
+    lib = _build.load()
+    adv = _adv_ops(block, dev)
+    rc = lib.ctt_gf_encode_crc(tables.data_ptr(), chunks.data_ptr(),
+                               parity.data_ptr(), lout.data_ptr(),
+                               adv.data_ptr(), m, k, n, block,
+                               _stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"gf_encode_crc launch failed: CUDA error {rc}")
+    return parity, lout, True
+
+
+def fused_hier_call(tables: torch.Tensor, chunks: torch.Tensor,
+                    wb: int = FUSED_WB):
+    """K2, hier entry (contract of Pallas kernel #1): parity (m, N)
+    uint8 and the L of every 4*wb-byte sub-block of all k+m rows,
+    (k+m, N // (4*wb)) int64 in stream order."""
+    _check_encode_crc(tables, chunks, 4 * wb)
+    if chunks.device.type == "cpu":
+        return fused_hier_call_plain(tables, chunks, wb)
+    parity, ls, launched = _encode_crc_launch(tables, chunks, 4 * wb)
+    if launched:
+        fused_hier_call.launches += 1
+    return parity, ls
+
+
+fused_hier_call.launches = 0
+
+
+def gf_encode_with_crc_w32(tables: torch.Tensor, chunks: torch.Tensor,
+                           tile: int = FUSED_TILE):
+    """K2, flat entry (contract of Pallas kernel #2): parity (m, N)
+    uint8 and one L per `tile` bytes of all k+m rows, (k+m, N // tile)
+    int64."""
+    _check_encode_crc(tables, chunks, tile)
+    if chunks.device.type == "cpu":
+        return gf_encode_with_crc_w32_plain(tables, chunks, tile)
+    parity, ls, launched = _encode_crc_launch(tables, chunks, tile)
+    if launched:
+        gf_encode_with_crc_w32.launches += 1
+    return parity, ls
+
+
+gf_encode_with_crc_w32.launches = 0
+
+KERNEL_WRAPPERS = (gf_bitmatmul, fused_hier_call, gf_encode_with_crc_w32)
+
+
+def launch_counts() -> dict[str, int]:
+    return {f.__name__: f.launches for f in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for f in KERNEL_WRAPPERS:
+        f.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# host <-> device staging
+# ----------------------------------------------------------------------------
+
+def stage(host: np.ndarray, device: torch.device):
+    """(pinned host tensor, device tensor) for a uint8 numpy matrix: the
+    copy to the card is queued on the current stream without waiting.
+    The pinned tensor must stay referenced until the stream has passed
+    the copy (the caller keeps it in its handle)."""
+    host = np.ascontiguousarray(host, dtype=np.uint8)
+    if device.type == "cpu":
+        t = torch.from_numpy(host)
+        return t, t
+    pinned = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
+    pinned.numpy()[...] = host
+    return pinned, pinned.to(device, non_blocking=True)
+
+
+def to_host_async(t: torch.Tensor) -> torch.Tensor:
+    """Queue a device -> pinned host copy; read it after the handle's
+    event has completed."""
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def record_event(device: torch.device):
+    """The event finalize waits on (None on the CPU, where every op has
+    already run)."""
+    if device.type == "cpu":
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+def wait(event) -> None:
+    if event is not None:
+        event.synchronize()
+
+
+# ----------------------------------------------------------------------------
+# the multi-extent launch contract (ceph_tpu bitsliced.py:858-1160)
+# ----------------------------------------------------------------------------
+
+def gf_encode_extents_with_crc(tables, runs):
+    """Parity + one combined crc32c L per shard for every run of a
+    drain: per run (parity (m, Wi) uint8, l (k+m,) uint32 over the run's
+    body, tail_bytes (k+m, tail_len) uint8, body_bytes).  Fold with
+    crc32c_linear.fold_run_crc seeded per shard."""
+    return gf_encode_extents_with_crc_finalize(
+        gf_encode_extents_with_crc_submit(tables, runs))
+
+
+def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs) -> dict:
+    """Dispatch half: stage the drain's runs, launch parity + crc and the
+    per-run device L folds, queue the results' copies to the host, and
+    return a handle — nothing here waits for the card.
+
+    Runs at least FUSED_TILE_HIER (128 KiB) wide take the hier entry
+    (L per FUSED_WB-word = 2 KiB sub-block), narrower drains the flat
+    entry (L per 2 KiB tile).  A drain mixing both splits into one launch of each,
+    demuxed back to the caller's run order at finalize.  Each run is
+    zero-padded at the back to a block multiple (zero bytes encode to
+    zero parity; the padded block's L is never read) and the runs
+    concatenate along the byte axis.  The handle's `path` names the
+    entry that served it ("hier_lsub" / "w32_flat")."""
+    device = tables.device
+    m, k = tables.shape[0], tables.shape[1]
+    runs = [np.ascontiguousarray(r, dtype=np.uint8) for r in runs]
+    if not runs or any(r.ndim != 2 or r.shape[0] != k for r in runs):
+        raise ValueError("every run of one launch must be (k, W) with "
+                         f"k={k}")
+    big_idx = [i for i, r in enumerate(runs)
+               if r.shape[1] >= FUSED_TILE_HIER]
+    if 0 < len(big_idx) < len(runs):
+        small_idx = [i for i, r in enumerate(runs)
+                     if r.shape[1] < FUSED_TILE_HIER]
+        parts = [(idxs, gf_encode_extents_with_crc_submit(
+            tables, [runs[i] for i in idxs]))
+            for idxs in (big_idx, small_idx)]
+        return {"split": parts, "n_runs": len(runs),
+                "path": "+".join(h["path"] for _, h in parts)}
+    hier = len(big_idx) == len(runs)
+    block = 4 * FUSED_WB if hier else FUSED_TILE
+    meta = [r.shape[1] for r in runs]
+    padded = [np.pad(r, ((0, 0), (0, -r.shape[1] % block)))
+              if r.shape[1] % block else r for r in runs]
+    big = padded[0] if len(padded) == 1 else np.concatenate(padded, axis=1)
+    staged, dev = stage(big, device)
+    if hier:
+        parity_dev, ls = fused_hier_call(tables, dev, FUSED_WB)
+        path = "hier_lsub"
+    else:
+        parity_dev, ls = gf_encode_with_crc_w32(tables, dev, block)
+        path = "w32_flat"
+    # per-run device combines of each run's full blocks: one L per shard
+    folds = []
+    has_l = []
+    coff = 0
+    for w, pr in zip(meta, padded):
+        nb = w // block
+        has_l.append(nb > 0)
+        if nb:
+            boff = coff // block
+            folds.append(cl.combine_crcs_pow2(
+                cl.u32_to_bits(ls[:, boff:boff + nb]), block))
+        coff += pr.shape[1]
+    l_dev = cl.bits_to_u32(torch.stack(folds)) if folds else None
+    return {"meta": meta, "padded": padded, "block_bytes": block,
+            "r_tot": k + m, "m": m, "big_width": big.shape[1],
+            "path": path, "has_l": has_l, "staged": staged,
+            "parity_host": to_host_async(parity_dev),
+            "l_host": to_host_async(l_dev) if l_dev is not None else None,
+            "event": record_event(device)}
+
+
+def gf_encode_extents_with_crc_finalize(handle: dict) -> list[tuple]:
+    """Completion half: the only place that waits for the card.  Returns
+    the per-run (parity, l, tail_bytes, body_bytes) tuples."""
+    if "split" in handle:
+        out = [None] * handle["n_runs"]
+        for idxs, sub in handle["split"]:
+            for i, res in zip(idxs, gf_encode_extents_with_crc_finalize(sub)):
+                out[i] = res
+        return out
+    wait(handle["event"])
+    r_tot = handle["r_tot"]
+    block = handle["block_bytes"]
+    parity_big = handle["parity_host"].numpy()
+    ls = handle["l_host"].numpy().astype(np.uint32) \
+        if handle["l_host"] is not None else None
+    out = []
+    coff = 0
+    li = 0
+    for w, pr, has in zip(handle["meta"], handle["padded"], handle["has_l"]):
+        par = parity_big[:, coff:coff + w]
+        body = (w // block) * block
+        if has:
+            l = ls[li]
+            li += 1
+        else:
+            l = np.zeros(r_tot, dtype=np.uint32)
+        tail_bytes = np.concatenate([pr[:, body:w], par[:, body:w]], axis=0) \
+            if w > body else np.zeros((r_tot, 0), dtype=np.uint8)
+        out.append((par, l, tail_bytes, body))
+        coff += pr.shape[1]
+    return out

@@ -1,0 +1,264 @@
+"""EC stripe geometry + per-shard checksums + stripe-batch codec glue.
+
+Re-expresses reference src/osd/ECUtil.{h,cc}:
+
+* `StripeInfo` — stripe_width/chunk_size arithmetic and logical<->chunk
+  offset mapping (reference stripe_info_t, ECUtil.h:27-80).
+* `HashInfo` — cumulative per-shard crc32c, persisted as a shard xattr,
+  with projected sizes for in-flight ops (reference ECUtil.h:101-160;
+  updated by append at ECUtil.cc:172, verified on reads by
+  ECBackend::handle_sub_read, checked by deep scrub).
+* `encode` / `decode` — slice a logical buffer into stripes and run the
+  codec.  Where ECUtil::encode loops stripes serially calling
+  ec_impl->encode per stripe (ECUtil.cc:120-150), here the whole extent
+  (all stripes) goes to the codec as ONE batched call — the kernel
+  walks the byte axis, so more stripes just means a longer axis.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..common import crc32c as _crc
+from ..ec.interface import ErasureCodeInterface
+
+
+@dataclass(frozen=True)
+class StripeInfo:
+    """Geometry of an EC pool's stripes (reference stripe_info_t)."""
+
+    stripe_width: int   # bytes of logical data per stripe (k * chunk_size)
+    chunk_size: int     # bytes per shard per stripe
+
+    def __post_init__(self):
+        assert self.stripe_width % self.chunk_size == 0, \
+            (self.stripe_width, self.chunk_size)
+
+    @property
+    def k(self) -> int:
+        return self.stripe_width // self.chunk_size
+
+    def logical_to_prev_stripe_offset(self, off: int) -> int:
+        return off - off % self.stripe_width
+
+    def logical_to_next_stripe_offset(self, off: int) -> int:
+        return -(-off // self.stripe_width) * self.stripe_width
+
+    def logical_to_next_chunk_offset(self, off: int) -> int:
+        return -(-off // self.stripe_width) * self.chunk_size
+
+    def aligned_logical_offset_to_chunk_offset(self, off: int) -> int:
+        assert off % self.stripe_width == 0, off
+        return (off // self.stripe_width) * self.chunk_size
+
+    def aligned_chunk_offset_to_logical_offset(self, off: int) -> int:
+        assert off % self.chunk_size == 0, off
+        return (off // self.chunk_size) * self.stripe_width
+
+    def offset_len_to_stripe_bounds(self, off: int,
+                                    length: int) -> tuple[int, int]:
+        """Round an extent out to stripe bounds (reference
+        stripe_info_t::offset_len_to_stripe_bounds)."""
+        start = self.logical_to_prev_stripe_offset(off)
+        end = self.logical_to_next_stripe_offset(off + length)
+        return start, end - start
+
+
+HINFO_KEY = "hinfo_key"  # shard xattr name (reference ECUtil.cc get_hinfo_key)
+# Per-shard full-chunk crc32c, maintained BY THE SHARD on every write
+# once the object's cumulative hinfo is invalidated by an overwrite
+# (the integrity story for overwritten objects; the reference's
+# allow_ec_overwrites pools lean on deep-scrub reads the same way).
+CHUNK_CRC_KEY = "chunk_crc"
+
+
+def chunk_crc_of(data) -> bytes:
+    from ..common import crc32c as _crc32c
+    import numpy as _np
+    return _crc32c.crc32c(_np.asarray(data).tobytes(),
+                          0xFFFFFFFF).to_bytes(4, "little")
+
+
+def refresh_chunk_crcs(store, cid, shard: int, entries) -> None:
+    """Shard-side integrity upkeep after applying a sub-write: an
+    object that has entered overwrite mode (a generation was kept, or
+    a chunk_crc attr already exists from an earlier overwrite) gets
+    its full-chunk crc recomputed from local bytes.  Pure appends on
+    never-overwritten objects skip this — their cumulative hinfo is
+    still authoritative."""
+    from .pg_log import LogOp
+    from .types import ghobject_t
+    seen = set()
+    for e in entries:
+        if e.op is not LogOp.MODIFY or e.oid in seen:
+            continue
+        seen.add(e.oid)
+        goid = ghobject_t(e.oid, shard=shard)
+        if e.rollback.kept_generation is None:
+            try:
+                store.getattr(cid, goid, CHUNK_CRC_KEY)
+            except KeyError:
+                continue   # append-only object: hinfo covers it
+        try:
+            data = store.read(cid, goid)
+        except KeyError:
+            continue
+        from ..store.object_store import Transaction
+        txn = Transaction()
+        txn.setattr(goid, CHUNK_CRC_KEY, chunk_crc_of(data))
+        store.queue_transactions(cid, [txn])
+
+
+@dataclass
+class HashInfo:
+    """Cumulative per-shard crc32c + shard/logical sizes.
+
+    Invariant: cumulative_shard_hashes[s] is the crc32c (seed -1) of all
+    bytes ever appended to shard s, and total_chunk_size their length.
+    Append-only, like the reference (EC overwrites bump object
+    generations rather than rewriting ranges in place).
+
+    logical_size carries the object's true byte length (the reference
+    keeps this in object_info_t; here it rides the hinfo xattr, which is
+    already replicated on every shard) — without it, reads would return
+    the stripe-padded size.
+    """
+
+    total_chunk_size: int = 0
+    cumulative_shard_hashes: list[int] = field(default_factory=list)
+    logical_size: int = 0
+    # Sticky: once an in-place overwrite/shrink broke the cumulative
+    # crcs, later appends fold onto meaningless seeds — the flag must
+    # survive so consumers switch to the per-shard chunk_crc attr.
+    invalidated: bool = False
+
+    @classmethod
+    def make(cls, n_shards: int) -> "HashInfo":
+        return cls(0, [0xFFFFFFFF] * n_shards, 0)
+
+    def append(self, old_size: int, shard_chunks: np.ndarray) -> None:
+        """Fold one stripe-aligned append into every shard's crc
+        (reference HashInfo::append, ECUtil.cc:172).  shard_chunks is
+        (n_shards, added_len)."""
+        assert old_size == self.total_chunk_size, \
+            f"append at {old_size} != current {self.total_chunk_size}"
+        n, added = shard_chunks.shape
+        assert n == len(self.cumulative_shard_hashes)
+        self.cumulative_shard_hashes = _crc.crc32c_rows(
+            shard_chunks, self.cumulative_shard_hashes)
+        self.total_chunk_size += added
+
+    def append_precomputed(self, old_size: int, added: int,
+                           new_hashes: list[int]) -> None:
+        """Fold an append whose cumulative crcs were already produced —
+        by the fused CUDA kernel seeded with the current hashes (the
+        single-launch parity+crc path)."""
+        assert old_size == self.total_chunk_size
+        assert len(new_hashes) == len(self.cumulative_shard_hashes)
+        self.cumulative_shard_hashes = [int(h) & 0xFFFFFFFF
+                                        for h in new_hashes]
+        self.total_chunk_size += added
+
+    def invalidate(self, new_size: int | None = None) -> None:
+        """An in-place change breaks the incremental crcs permanently
+        (sticky flag); rollback safety comes from the object generation
+        kept at overwrite time, and integrity from the shard-maintained
+        chunk_crc attr.  NOTE: a same-size overwrite must invalidate
+        too — stale cumulative crcs over new bytes read as corruption."""
+        if new_size is not None:
+            self.total_chunk_size = new_size
+        self.cumulative_shard_hashes = [
+            0xFFFFFFFF] * len(self.cumulative_shard_hashes)
+        self.invalidated = True
+
+    def truncate(self, new_size: int) -> None:
+        if new_size != self.total_chunk_size:
+            self.invalidate(new_size)
+
+    def get_chunk_hash(self, shard: int) -> int:
+        return self.cumulative_shard_hashes[shard]
+
+    @property
+    def crc_valid(self) -> bool:
+        """False once an overwrite/shrink broke the cumulative hashes:
+        consumers must use the per-shard chunk_crc attr instead."""
+        return not self.invalidated and (
+            self.total_chunk_size == 0 or
+            any(h != 0xFFFFFFFF for h in self.cumulative_shard_hashes))
+
+    # -- persistence (shard xattr) -----------------------------------------
+
+    _MAGIC_V2 = b"HIv2"
+
+    def encode(self) -> bytes:
+        import struct
+        return self._MAGIC_V2 + struct.pack(
+            "<QQII", self.total_chunk_size, self.logical_size,
+            1 if self.invalidated else 0,
+            len(self.cumulative_shard_hashes)) + b"".join(
+            int(h).to_bytes(4, "little")
+            for h in self.cumulative_shard_hashes)
+
+    @classmethod
+    def decode(cls, raw: bytes) -> "HashInfo":
+        import struct
+        if raw[:4] == cls._MAGIC_V2:
+            size, logical, flags, n = struct.unpack_from("<QQII", raw, 4)
+            off = 4 + 24
+            inval = bool(flags & 1)
+        else:
+            # legacy (pre-invalidated-flag) layout: <QQI + hashes
+            size, logical, n = struct.unpack_from("<QQI", raw)
+            off = 20
+            inval = False
+        hashes = [int.from_bytes(raw[off + 4 * i:off + 4 + 4 * i],
+                                 "little") for i in range(n)]
+        return cls(size, hashes, logical, invalidated=inval)
+
+
+def encode(sinfo: StripeInfo, ec_impl: ErasureCodeInterface,
+           data: np.ndarray) -> np.ndarray:
+    """Encode a stripe-aligned logical extent into all shard chunks.
+
+    data: (L,) uint8 with L % stripe_width == 0.
+    Returns (k+m, L/k): shard s's contiguous bytes for this extent.
+
+    One batched codec call for all stripes: logical layout is
+    [stripe0[chunk0..chunkk-1], stripe1[...], ...]; reshaping to
+    (nstripes, k, chunk_size) and transposing gives each shard's rows,
+    which ride the codec's byte axis in one launch.
+    """
+    data = np.asarray(data, dtype=np.uint8).ravel()
+    assert data.size % sinfo.stripe_width == 0, \
+        (data.size, sinfo.stripe_width)
+    k = sinfo.k
+    m = ec_impl.get_chunk_count() - ec_impl.get_data_chunk_count()
+    assert k == ec_impl.get_data_chunk_count()
+    nstripes = data.size // sinfo.stripe_width
+    # (k, nstripes*chunk_size): row j = shard j's bytes across stripes
+    chunks = data.reshape(nstripes, k, sinfo.chunk_size) \
+                 .transpose(1, 0, 2).reshape(k, -1)
+    parity = np.asarray(ec_impl.encode_chunks(chunks))
+    return np.concatenate([chunks, parity], axis=0)
+
+
+def decode(sinfo: StripeInfo, ec_impl: ErasureCodeInterface,
+           shard_data: dict[int, np.ndarray], want_len: int) -> np.ndarray:
+    """Rebuild a logical extent from per-shard contiguous buffers
+    (reference ECUtil::decode).  shard_data maps shard id -> (chunk-run)
+    bytes, all the same length and stripe-aligned."""
+    lens = {v.size for v in shard_data.values()}
+    assert len(lens) == 1, "mixed shard lengths"
+    run = lens.pop()
+    assert run % sinfo.chunk_size == 0
+    k = sinfo.k
+    decoded = ec_impl.decode(set(range(k)),
+                             {s: d for s, d in shard_data.items()}, run)
+    nstripes = run // sinfo.chunk_size
+    stacked = np.stack([np.asarray(decoded[j], dtype=np.uint8)
+                        for j in range(k)])        # (k, run)
+    logical = stacked.reshape(k, nstripes, sinfo.chunk_size) \
+                     .transpose(1, 0, 2).reshape(-1)
+    return logical[:want_len]

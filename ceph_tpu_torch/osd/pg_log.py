@@ -1,0 +1,204 @@
+"""PG log: per-PG op journal for recovery, EC rollback, and peering.
+
+Re-expresses reference src/osd/PGLog.{h,cc} at the fidelity the EC
+pipeline needs: an ordered list of entries keyed by eversion, each
+carrying enough rollback state to locally undo it (the reference's
+design constraint that EC ops be locally rollbackable —
+doc/dev/osd_internals/erasure_coding/ecbackend.rst:9-27: append records
+the old size, delete keeps the old generation, setattr keeps prior
+values), plus the can_rollback_to / rollforward bounds ECBackend
+advances in try_finish_rmw (reference ECBackend.cc:2115-2134).
+
+The log is REPLICATED: every sub-write carries its entries (reference
+ECSubWrite.log_entries, src/osd/ECMsgTypes.h:38) and each shard persists
+them durably alongside the data — omap of a per-PG meta object, the
+analog of the reference's pglog omap keys in the pg meta collection
+(src/osd/PGLog.cc _write_log_and_missing).  This module keeps the part
+the EC write path uses; peering, rollback and split/merge of shard logs
+are not part of it.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from enum import Enum
+
+from .types import eversion_t, ghobject_t, hobject_t
+
+# Reserved per-PG metadata object carrying the shard's log (omap) and
+# info (xattr).  Filtered out of object enumeration (MPGList, scrub).
+PG_META_NAME = "__pg_meta__"
+INFO_ATTR = "_info"
+
+
+def meta_oid(pool: int, shard: int) -> ghobject_t:
+    return ghobject_t(hobject_t(pool, PG_META_NAME), shard=shard)
+
+
+class LogOp(Enum):
+    MODIFY = "modify"
+    DELETE = "delete"
+    ERROR = "error"
+
+
+@dataclass
+class RollbackInfo:
+    """What a shard must remember to undo this entry locally."""
+    append_old_size: int | None = None          # logical size before
+    old_attrs: dict[str, bytes | None] | None = None  # prior xattr values
+    kept_generation: int | None = None          # delete renamed to this gen
+    hinfo_old: bytes | None = None              # prior hinfo xattr
+    old_chunk_size: int | None = None           # per-shard size before
+    pure_append: bool = False                   # undo == truncate
+
+
+@dataclass
+class LogEntry:
+    version: eversion_t
+    oid: hobject_t
+    op: LogOp = LogOp.MODIFY
+    rollback: RollbackInfo = field(default_factory=RollbackInfo)
+
+
+@dataclass
+class pg_info_t:
+    """Shard-resident PG summary (reference osd_types.h pg_info_t, the
+    slice peering needs: last_update orders logs inside an interval,
+    last_epoch_started fences out shards that missed an interval)."""
+    last_update: eversion_t = field(default_factory=eversion_t)
+    last_epoch_started: int = 0
+
+    def to_json(self) -> dict:
+        return {"lu": [self.last_update.epoch, self.last_update.version],
+                "les": self.last_epoch_started}
+
+    @classmethod
+    def from_json(cls, j: dict) -> "pg_info_t":
+        return cls(eversion_t(*j["lu"]), j["les"])
+
+
+def entry_to_wire(e: LogEntry) -> list:
+    rb = e.rollback
+    return [e.version.epoch, e.version.version,
+            [e.oid.pool, e.oid.name, e.oid.key, e.oid.snap, e.oid.hash],
+            e.op.value, rb.append_old_size, rb.old_chunk_size,
+            rb.pure_append,
+            rb.hinfo_old.hex() if rb.hinfo_old is not None else None,
+            rb.kept_generation]
+
+
+def entry_from_wire(w: list) -> LogEntry:
+    return LogEntry(
+        eversion_t(w[0], w[1]), hobject_t(*w[2]), LogOp(w[3]),
+        RollbackInfo(append_old_size=w[4], old_chunk_size=w[5],
+                     pure_append=w[6],
+                     hinfo_old=bytes.fromhex(w[7]) if w[7] else None,
+                     kept_generation=w[8] if len(w) > 8 else None))
+
+
+def _omap_key(e: LogEntry) -> bytes:
+    return (f"{e.version.epoch:010d}.{e.version.version:010d}."
+            f"{e.oid.name}").encode()
+
+
+class PGLog:
+    def __init__(self) -> None:
+        self.entries: list[LogEntry] = []
+        self.head = eversion_t()            # newest logged
+        self.tail = eversion_t()            # oldest kept
+        self.can_rollback_to = eversion_t() # entries after this are undoable
+        self.rollforward_to = eversion_t()  # entries before this are durable
+
+    def add(self, entry: LogEntry) -> None:
+        # >= not >: one txn's objects share the op version (reference
+        # keeps one entry per object too, pg_log_entry_t per hobject)
+        assert entry.version >= self.head, (entry.version, self.head)
+        self.entries.append(entry)
+        self.head = entry.version
+
+    def roll_forward_to(self, v: eversion_t) -> list[LogEntry]:
+        """Mark entries <= v irrevocable; returns the newly-stable ones
+        (whose rollback state may be discarded / old gens trimmed)."""
+        newly = [e for e in self.entries
+                 if self.rollforward_to < e.version <= v]
+        if v > self.rollforward_to:
+            self.rollforward_to = v
+        if v > self.can_rollback_to:
+            self.can_rollback_to = v
+        return newly
+
+
+class ShardPGLog:
+    """The shard-resident replicated log: entries + pg_info persisted in
+    the store (omap + xattr of the per-PG meta object) in the SAME
+    transaction as the data they describe, so the write and its log
+    entry are atomic (reference ECBackend::handle_sub_write appends
+    log_entries into the sub-write's ObjectStore::Transaction).
+    """
+
+    def __init__(self, store, cid, shard: int):
+        self.store = store
+        self.cid = cid
+        self.shard = shard
+        self.moid = meta_oid(cid.pgid.pool, shard)
+        self.log = PGLog()
+        self.info = pg_info_t()
+        self._load()
+
+    def _load(self) -> None:
+        try:
+            raw = self.store.getattr(self.cid, self.moid, INFO_ATTR)
+            self.info = pg_info_t.from_json(json.loads(raw.decode()))
+        except KeyError:
+            return
+        try:
+            omap = self.store.omap_get(self.cid, self.moid)
+        except KeyError:
+            omap = {}
+        for key in sorted(omap):
+            e = entry_from_wire(json.loads(omap[key].decode()))
+            if e.version >= self.log.head:
+                self.log.add(e)
+        if self.log.entries:
+            self.log.tail = self.log.entries[0].version
+
+    def append_to_txn(self, txn, entries: list[LogEntry],
+                      at_version: eversion_t) -> None:
+        """Augment the shard data transaction with log persistence."""
+        txn.touch(self.moid)
+        if entries:
+            txn.omap_setkeys(self.moid, {
+                _omap_key(e): json.dumps(entry_to_wire(e)).encode()
+                for e in entries})
+        self.info.last_update = max(self.info.last_update, at_version)
+        txn.setattr(self.moid, INFO_ATTR,
+                    json.dumps(self.info.to_json()).encode())
+
+    def record(self, entries: list[LogEntry], at_version: eversion_t
+               ) -> None:
+        """In-memory bookkeeping after the txn committed."""
+        for e in entries:
+            if e.version >= self.log.head:
+                self.log.add(e)
+
+    def advance_rollforward(self, rf: eversion_t) -> None:
+        """Entries at or below rf are durable everywhere: their kept
+        generations will never be rolled back to — reclaim them
+        (reference trim_rollback_object on rollforward,
+        ECBackend.cc try_finish_rmw)."""
+        newly = self.log.roll_forward_to(rf)
+        purge = [e for e in newly
+                 if e.rollback.kept_generation is not None]
+        if not purge:
+            return
+        txn = _txn()
+        for e in purge:
+            txn.remove(ghobject_t(e.oid, e.rollback.kept_generation,
+                                  self.shard))
+        self.store.queue_transactions(self.cid, [txn])
+
+
+def _txn():
+    from ..store.object_store import Transaction
+    return Transaction()
