@@ -18,21 +18,9 @@
 // parity rows into shared memory with the product tables (shared
 // memory too), writes parity to device memory once, and takes the
 // parity rows' crcs from shared memory — parity never makes a round
-// trip through device memory before its crc.
-//
-// The crc of a block is split across one warp: lane l runs the byte
-// table over its own B/32-byte piece from state 0, and the warp folds
-// the 32 partials pairwise with L(P1 || P2) = A_|P2| . L(P1) ^ L(P2),
-// the identity the JAX package's crc matrices rest on
-// (ceph_tpu/ops/crc32c_linear.py:5-16).  The five operators
-// A_{piece * 2^j} come from the host as 32 uint32 columns each.
-//
-// Shared-memory layout: each lane's piece is followed by one pad word,
-// so a row takes B + 128 bytes.  Without it the 32 lanes' word t of a
-// 64-byte piece sit 16 words apart, in 2 of the 32 banks: a 16-way
-// bank conflict on every load of the crc loop.  With the pad, lane l's
-// word t is in bank (l * (B/128 + 1) + t) % 32, all distinct at
-// B = 2 KiB.
+// trip through device memory before its crc.  The per-block body
+// (staging, parity, the warp crc and its bank-conflict pad) lives in
+// gf_common.cuh, shared with K3.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -41,19 +29,6 @@
 
 namespace {
 
-constexpr uint32_t kPoly = 0x82F63B78u;  // crc32c, reflected
-
-__device__ inline uint32_t apply_op(const uint32_t* op, uint32_t x) {
-  uint32_t r = 0;
-#pragma unroll
-  for (int b = 0; b < 32; ++b) r ^= op[b] & (0u - ((x >> b) & 1u));
-  return r;
-}
-
-// Word w of a block row, in the padded row (one pad word per piece of
-// `wpp` words).
-__device__ inline int padded_word(int w, int wpp) { return w + w / wpp; }
-
 __global__ void gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
                                      const uint8_t* __restrict__ in,
                                      uint8_t* __restrict__ parity,
@@ -61,84 +36,20 @@ __global__ void gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
                                      const uint32_t* __restrict__ adv,
                                      int m, int k, int64_t n, int B) {
   extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* s_tab = smem;                                     // m*k*256
-  uint32_t* s_ctab = reinterpret_cast<uint32_t*>(s_tab + m * k * 256);
-  uint32_t* s_adv = s_ctab + 256;                            // 5*32
-  uint32_t* s_data = s_adv + 160;                            // k*(B+128)
-  const int S = B / 4 + 32;                         // padded row, words
-  uint32_t* s_par = s_data + k * S;                          // m*(B+128)
-
-  ctt::copy_to_shared16(s_tab, tables, m * k * 256);
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    uint32_t c = static_cast<uint32_t>(i);
-    for (int t = 0; t < 8; ++t) c = (c >> 1) ^ (kPoly & (0u - (c & 1u)));
-    s_ctab[i] = c;
-  }
-  for (int i = threadIdx.x; i < 160; i += blockDim.x) s_adv[i] = adv[i];
+  const ctt::CrcSmem s =
+      ctt::carve_crc_smem(smem, m, k, B, ctt::kWarpFoldLevels);
+  ctt::load_crc_tables(s, tables, adv, m, k, ctt::kWarpFoldLevels);
 
   const int64_t nblocks = n / B;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int wpp = B / 128;  // words per lane's piece
   for (int64_t blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-    const int64_t col0 = blk * B;
-    __syncthreads();  // previous block's crcs are done with s_data/s_par
-    for (int j = 0; j < k; ++j) {
-      const uint4* src = reinterpret_cast<const uint4*>(in + j * n + col0);
-      uint32_t* dst = s_data + j * S;
-      for (int i = threadIdx.x; i < B / 16; i += blockDim.x) {
-        const uint4 v = src[i];
-        dst[padded_word(4 * i, wpp)] = v.x;
-        dst[padded_word(4 * i + 1, wpp)] = v.y;
-        dst[padded_word(4 * i + 2, wpp)] = v.z;
-        dst[padded_word(4 * i + 3, wpp)] = v.w;
-      }
-    }
-    __syncthreads();
-
-    // parity: one 4-byte word of every parity row per thread and step
-    for (int w = threadIdx.x; w < B / 4; w += blockDim.x) {
-      const int pw = padded_word(w, wpp);
-      for (int i0 = 0; i0 < m; i0 += ctt::kMaxRows) {
-        const int nrows = min(ctt::kMaxRows, m - i0);
-        uint32_t acc[ctt::kMaxRows] = {0};
-        for (int j = 0; j < k; ++j)
-          ctt::gf_mac_word(acc, s_tab, k, j, i0, nrows, s_data[j * S + pw]);
-#pragma unroll
-        for (int i = 0; i < ctt::kMaxRows; ++i) {
-          if (i < nrows) {
-            s_par[(i0 + i) * S + pw] = acc[i];
-            *reinterpret_cast<uint32_t*>(parity + (i0 + i) * n + col0 +
-                                         4 * w) = acc[i];
-          }
-        }
-      }
-    }
-    __syncthreads();
-
+    ctt::encode_block(s, in, parity, m, k, n, blk * B, B);
     // crc32c linear part of this block of every shard row, one warp
     // per row
     for (int row = warp; row < k + m; row += nwarps) {
-      const uint32_t* p =
-          (row < k ? s_data + row * S : s_par + (row - k) * S) +
-          lane * (wpp + 1);
-      uint32_t crc = 0;
-      for (int t = 0; t < wpp; ++t) {
-        uint32_t w = p[t];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          crc = s_ctab[(crc ^ w) & 0xFFu] ^ (crc >> 8);
-          w >>= 8;
-        }
-      }
-#pragma unroll
-      for (int lv = 0; lv < 5; ++lv) {
-        const int d = 1 << lv;
-        const uint32_t right = __shfl_down_sync(0xFFFFFFFFu, crc, d);
-        const uint32_t left = apply_op(s_adv + lv * 32, crc);
-        if ((lane & (2 * d - 1)) == 0) crc = left ^ right;
-      }
+      const uint32_t crc = ctt::warp_row_crc(s, row, k, B, lane);
       if (lane == 0) lout[row * nblocks + blk] = crc;  // zero-extended
     }
   }
@@ -157,7 +68,7 @@ extern "C" int ctt_gf_encode_crc(const void* tables, const void* in,
                                  int m, int k, long long n, int B,
                                  void* stream) {
   const int threads = 256;
-  const int smem = m * k * 256 + 256 * 4 + 160 * 4 + (k + m) * (B + 128);
+  const int smem = ctt::crc_smem_bytes(m, k, B, ctt::kWarpFoldLevels);
   long long blocks = n / B;
   if (blocks > 2048) blocks = 2048;
   if (blocks < 1) blocks = 1;

@@ -12,6 +12,13 @@ Profile key `device` picks where the codec runs: "cuda" (default) or
 "cpu" (the plain PyTorch versions — the tests' setting).  A CUDA
 request without a GPU raises at init.
 
+The fused write path runs at the operating point ops/autotune picks for
+the card (`fused_point`, swept and cached at the first fused encode).
+The device-resident entries (`encode_chunks_device`, `encode_stripes`,
+`decode_chunks_device`, `encode_words_with_crc`) take and return
+tensors on the codec's device, with no host staging: the contract of
+Pallas kernel #5 (`_gf_kernel`), served by K1.
+
 Decode: the (survivors -> erased) coefficient matrix is computed on the
 host (Gauss-Jordan, cached by erasure signature like the reference's
 ISA-L table cache) and applied with the same K1 kernel as encode.
@@ -24,6 +31,7 @@ import sys
 import threading
 
 import numpy as np
+import torch
 
 from ... import resolve_device
 from ...ops import bitsliced as bs
@@ -50,6 +58,7 @@ class ErasureCodeTorch(ErasureCode):
         self.device = None
         self._codec_sig: tuple | None = None
         self._enc_tables = None            # (m, k, 256) on self.device
+        self._fused_point: dict | None = None   # lazy autotune result
         self._decode_cache: dict[tuple, tuple] = {}
         self._lock = threading.Lock()
 
@@ -106,17 +115,67 @@ class ErasureCodeTorch(ErasureCode):
         return self._apply_bitmat(self._enc_tables,
                                   np.ascontiguousarray(chunks, np.uint8))
 
+    def encode_chunks_device(self, chunks: torch.Tensor) -> torch.Tensor:
+        """Device-resident encode: (k, N) uint8 on the codec's device ->
+        (m, N) parity, one K1 launch, any N.  No host transfer; for
+        benchmarks and pipelines holding device tensors."""
+        return bs.gf_bitmatmul(self._enc_tables, chunks)
+
+    def encode_stripes(self, stripes: torch.Tensor) -> torch.Tensor:
+        """Batched encode: (B, k, C) uint8 on the device -> (B, m, C) in
+        one K1 launch.  The batch rides the byte axis: the stripes are
+        laid out as (k, B*C) so every stripe's chunk j lands in row j.
+        Returns a permuted view of the (m, B*C) launch output."""
+        b, k, c = stripes.shape
+        if k != self.k:
+            raise ValueError(f"stripes have k={k}, the codec k={self.k}")
+        flat = stripes.permute(1, 0, 2).reshape(k, b * c)
+        par = bs.gf_bitmatmul(self._enc_tables, flat)
+        return par.reshape(self.m, b, c).permute(1, 0, 2)
+
+    def fused_point(self) -> dict:
+        """The fused write path's (tile, wb, extract, combine) operating
+        point for this device, resolved lazily through the ops/autotune
+        cache: the first fused call on a fresh card pays the sweep and
+        CPU devices get the static default.  A kernel that fails to
+        build or launch in the sweep raises here, failing the write,
+        rather than moving the path onto its plain version."""
+        if self._fused_point is None:
+            from ...ops import autotune
+            self._fused_point = autotune.fused_operating_point(
+                self.k, self.m, tables=self._enc_tables,
+                mat=self.matrix[self.k:])
+        return self._fused_point
+
+    def encode_words_with_crc(self, chunks: torch.Tensor):
+        """Device-resident fused parity + crc at the operating point:
+        chunks (k, N) uint8 on the codec's device, N a multiple of the
+        point's crc block (4*wb bytes).  Returns (parity (m, N) uint8,
+        L (k+m,) int64 — ONE combined L per shard; fold with
+        crc32c_linear.fold_run_crc)."""
+        point = self.fused_point()
+        return bs.gf_encode_with_crc_w32_fold(
+            self._enc_tables, chunks, point["wb"], point["combine"])
+
+    def _point_kwargs(self) -> dict:
+        point = self.fused_point()
+        return {"tile": point["tile"], "wb": point["wb"],
+                "combine": point["combine"]}
+
     def encode_extents_with_crc(self, runs: list[np.ndarray]):
         """Parity + ONE combined crc L per shard for every run of a
-        drain: per run (parity (m, Wi), l (k+m,) uint32, tail_bytes,
-        body_bytes); fold each with fold_extent_crcs."""
-        return bs.gf_encode_extents_with_crc(self._enc_tables, runs)
+        drain, at the operating point: per run (parity (m, Wi), l (k+m,)
+        uint32, tail_bytes, body_bytes); fold each with
+        fold_extent_crcs."""
+        return bs.gf_encode_extents_with_crc(self._enc_tables, runs,
+                                             **self._point_kwargs())
 
     def encode_extents_with_crc_submit(self, runs: list[np.ndarray]):
         """Dispatch half of encode_extents_with_crc for the dispatch-ahead
         pipeline: launches the drain's fused work and returns a handle
         holding a CUDA event — the caller does not wait for the card."""
-        return bs.gf_encode_extents_with_crc_submit(self._enc_tables, runs)
+        return bs.gf_encode_extents_with_crc_submit(self._enc_tables, runs,
+                                                    **self._point_kwargs())
 
     def encode_extents_with_crc_finalize(self, handle):
         """Completion half: waits for one submit handle's event and
@@ -180,6 +239,14 @@ class ErasureCodeTorch(ErasureCode):
             self._decode_cache[key] = plan
         return plan
 
+    def decode_chunks_device(self, chunks: torch.Tensor, survivors,
+                             targets) -> torch.Tensor:
+        """Device-resident decode: `chunks` (k, N) survivor rows in
+        `survivors` order on the codec's device -> the reconstructed
+        `targets` rows (len(targets), N), one K1 launch."""
+        _, tables = self._decode_plan(tuple(survivors), tuple(targets))
+        return bs.gf_bitmatmul(tables, chunks)
+
     def decode_chunks(self, dense: np.ndarray, erasures) -> np.ndarray:
         n = self.get_chunk_count()
         erased = tuple(sorted(set(erasures)))
@@ -200,7 +267,9 @@ def from_jax_state(jax_codec, device: str = "cuda") -> ErasureCodeTorch:
     """A torch codec carrying the state of a ceph_tpu jax codec: its
     generator matrix (`ErasureCodeJax.matrix`, numpy uint8) and its
     cached decode plans (survivors, targets) -> coefficients.  Takes
-    plain attributes only, so this module imports nothing of JAX."""
+    plain attributes only, so this module imports nothing of JAX.  The
+    jax codec's `_fused_point` is not carried: it is an operating point
+    of a TPU; this codec resolves its own through ops/autotune."""
     codec = ErasureCodeTorch(getattr(jax_codec, "technique", "cauchy"))
     codec.k = int(jax_codec.k)
     codec.m = int(jax_codec.m)

@@ -116,5 +116,8 @@ def load() -> ctypes.CDLL:
         lib.ctt_gf_encode_crc.argtypes = [vp, vp, vp, vp, vp, i32, i32,
                                           i64, i32, vp]
         lib.ctt_gf_encode_crc.restype = i32
+        lib.ctt_gf_encode_crc_acc.argtypes = [vp, vp, vp, vp, vp, vp, i32,
+                                              i32, i32, i64, i32, i32, vp]
+        lib.ctt_gf_encode_crc_acc.restype = i32
         _lib = lib
         return lib

@@ -1,18 +1,24 @@
 """GF(2^8) parity and fused parity+crc32c on the card: kernel wrappers,
 their plain PyTorch versions, and the multi-extent launch contract.
 
-Two hand-written CUDA kernels (csrc/) carry the EC data plane:
+Three hand-written CUDA kernels (csrc/) carry the EC data plane:
 
 * K1 `gf_bitmatmul` (csrc/gf_bitmatmul.cu) — out = C x data over
   GF(2^8) for an (r, k) coefficient matrix.  Replaces Pallas kernel #3
-  (`_make_gf_kernel_w32`, ceph_tpu/ops/bitsliced.py:227).  Serves
-  every decode and the plain encode of overwrite extents.
+  (`_make_gf_kernel_w32`, ceph_tpu/ops/bitsliced.py:227) and its byte
+  twin #5 (`_gf_kernel` :122, the device-resident entries of the
+  plugin).  Serves every decode and the plain encode of overwrite
+  extents.
 * K2 `gf_encode_crc` (csrc/gf_encode_crc.cu) — parity plus the crc32c
   linear part L of every block of all k+m shard rows, one launch.  Two
   entries with the contracts of Pallas kernels #1 and #2:
   `fused_hier_call` (L per 4*wb-byte sub-block, ceph_tpu's
   `_fused_hier_call` :586) and `gf_encode_with_crc_w32` (L per tile,
   ceph_tpu's `gf_encode_with_crc_pallas_w32` :459).
+* K3 `gf_encode_crc_acc` (csrc/gf_encode_crc_acc.cu) — parity plus ONE
+  L per (run, shard) of a drain's front-padded runs, one launch: the
+  contract of Pallas kernel #4 (`_fused_hier_acc_call` :626), entry
+  `fused_hier_acc_call`.  The write path's `combine="kernel"` point.
 
 The coefficient operand of every kernel is the (r, k, 256) product
 table of the matrix (ec/gf.product_tables).  The kernels take bytes:
@@ -162,13 +168,21 @@ def _cmat_w32(wt: int, device: torch.device) -> torch.Tensor:
         device=device, dtype=torch.float32)
 
 
+WARP_FOLD_LEVELS = 5         # operator levels of the warp crc fold
+ACC_LEVELS = 32              # K3: the fold's 5 + 27 bits of a block's distance
+
+
 @functools.lru_cache(maxsize=16)
-def _adv_ops(block: int, device: torch.device) -> torch.Tensor:
-    """(5, 32) uint32 columns of A_{(block/32) * 2^j}, j = 0..4: the
-    warp-fold operators of K2 (stored as int32)."""
+def _adv_ops(block: int, device: torch.device,
+             levels: int = WARP_FOLD_LEVELS) -> torch.Tensor:
+    """(levels, 32) uint32 columns of A_{(block/32) * 2^j}, j = 0 ..
+    levels-1 (stored as int32), cached on the device: levels 0-4 are
+    the warp-fold operators of K2 and K3, level 5 + i is A_{block *
+    2^i}, which K3 composes to advance a block's L over the blocks
+    after it in its run."""
     from ..common import crc32c as _crc
     piece = block // 32
-    ops = np.stack([_crc.advance_op(piece << j) for j in range(5)])
+    ops = np.stack([_crc.advance_op(piece << j) for j in range(levels)])
     return torch.from_numpy(np.ascontiguousarray(ops).view(np.int32)) \
         .to(device)
 
@@ -215,13 +229,20 @@ def _check_encode_crc(tables, chunks, block: int) -> None:
                          f"width multiple of the block ({n} % {block})")
 
 
-def _encode_crc_launch(tables, chunks, block: int):
-    m, k, n = _check_operands(tables, chunks)
-    dev = chunks.device
-    smem = m * k * 256 + 256 * 4 + 160 * 4 + (k + m) * (block + 128)
+def _crc_smem_bytes(m: int, k: int, block: int, levels: int) -> int:
+    """Shared memory of K2/K3 (gf_common.cuh crc_smem_bytes); raises
+    when it exceeds one block's."""
+    smem = m * k * 256 + 256 * 4 + levels * 32 * 4 + (k + m) * (block + 128)
     if smem > SMEM_LIMIT:
         raise ValueError(f"gf_encode_crc: {smem} bytes of shared memory "
                          "exceed one block's")
+    return smem
+
+
+def _encode_crc_launch(tables, chunks, block: int):
+    m, k, n = _check_operands(tables, chunks)
+    dev = chunks.device
+    _crc_smem_bytes(m, k, block, WARP_FOLD_LEVELS)
     parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
     lout = torch.empty((k + m, n // block), dtype=torch.int64, device=dev)
     if n == 0:
@@ -271,7 +292,131 @@ def gf_encode_with_crc_w32(tables: torch.Tensor, chunks: torch.Tensor,
 
 gf_encode_with_crc_w32.launches = 0
 
-KERNEL_WRAPPERS = (gf_bitmatmul, fused_hier_call, gf_encode_with_crc_w32)
+
+# ----------------------------------------------------------------------------
+# K3: fused parity + one crc32c L per (run, shard)
+# ----------------------------------------------------------------------------
+
+def _run_bounds(run_ends: torch.Tensor) -> list[tuple[int, int]]:
+    ends = [int(e) for e in run_ends.tolist()]
+    return list(zip([0] + ends[:-1], ends))
+
+
+def fused_hier_acc_call_plain(tables: torch.Tensor, chunks: torch.Tensor,
+                              run_ends: torch.Tensor, wb: int = FUSED_WB):
+    """Plain version of K3, by another algorithm than the kernel's: K2's
+    plain per-block L (fused_hier_call_plain), then one log-depth
+    combine_crcs_pow2 fold over each run's blocks."""
+    block = 4 * wb
+    parity, ls = fused_hier_call_plain(tables, chunks, wb)
+    r_tot = ls.shape[0]
+    folds = [cl.combine_crcs_pow2(cl.u32_to_bits(ls[:, a:b]), block)
+             for a, b in _run_bounds(run_ends)]
+    lacc = cl.bits_to_u32(torch.stack(folds)) if folds else \
+        torch.zeros((0, r_tot), dtype=torch.int64, device=chunks.device)
+    return parity, lacc
+
+
+def fused_hier_acc_call(tables: torch.Tensor, chunks: torch.Tensor,
+                        run_ends: torch.Tensor, wb: int = FUSED_WB):
+    """K3 (contract of Pallas kernel #4): parity (m, N) uint8 and one L
+    per (run, shard) of all k+m rows, (nruns, k+m) int64.  The N
+    columns are the runs laid end to end, each a whole number of
+    4*wb-byte blocks; `run_ends` (nruns,) int64 on the chunks' device
+    holds the cumulative block ends (_acc_launch_args builds and checks
+    it: non-decreasing, the last == N / (4*wb))."""
+    block = 4 * wb
+    _check_encode_crc(tables, chunks, block)
+    _check("run_ends", run_ends, chunks.device, torch.int64, 1)
+    if run_ends.numel() == 0:
+        raise ValueError("fused_hier_acc_call needs at least one run")
+    if chunks.device.type == "cpu":
+        bounds = _run_bounds(run_ends)
+        if any(b < a for a, b in bounds) or \
+                bounds[-1][1] != chunks.shape[1] // block:
+            raise ValueError("run_ends must be non-decreasing and end at "
+                             "the launch's block count")
+        return fused_hier_acc_call_plain(tables, chunks, run_ends, wb)
+    m, k, n = _check_operands(tables, chunks)
+    dev = chunks.device
+    _crc_smem_bytes(m, k, block, ACC_LEVELS)
+    nruns = run_ends.numel()
+    parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
+    # the kernel XORs into the L slots: zero them first, in stream order
+    lacc = torch.zeros((nruns, k + m), dtype=torch.int64, device=dev)
+    if n == 0:
+        return parity, lacc
+    from . import _build
+    lib = _build.load()
+    adv = _adv_ops(block, dev, ACC_LEVELS)
+    rc = lib.ctt_gf_encode_crc_acc(tables.data_ptr(), chunks.data_ptr(),
+                                   parity.data_ptr(), lacc.data_ptr(),
+                                   adv.data_ptr(), run_ends.data_ptr(),
+                                   nruns, m, k, n, block, ACC_LEVELS,
+                                   _stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"gf_encode_crc_acc launch failed: CUDA error {rc}")
+    fused_hier_acc_call.launches += 1
+    return parity, lacc
+
+
+fused_hier_acc_call.launches = 0
+
+
+def _acc_launch_args(run_blocks, device: torch.device):
+    """(staged, run_ends) for one K3 launch over a drain's runs: the
+    cumulative block ends of runs of `run_blocks` blocks each, as int64
+    on `device`, queued with a pinned non-blocking copy (a pageable one
+    would synchronise the stream).  `staged` must stay referenced until
+    the stream has passed the copy (the extents path keeps it in its
+    handle)."""
+    counts = np.asarray(list(run_blocks), dtype=np.int64)
+    if counts.size == 0 or (counts < 0).any():
+        raise ValueError(f"bad run block counts {counts.tolist()}")
+    if counts.max() >= 1 << (ACC_LEVELS - WARP_FOLD_LEVELS):
+        raise ValueError("a run of K3 is limited to 2^27 blocks")
+    return stage(np.cumsum(counts), device)
+
+
+def _hier_acc_core(tables: torch.Tensor, chunks: torch.Tensor, run_blocks,
+                   wb: int):
+    """One K3 launch over runs of `run_blocks` blocks laid end to end in
+    `chunks`: (parity (m, N) uint8, L (nruns, k+m) int64 — one L per
+    shard per run, covering every byte of the run — , the pinned
+    staging the caller keeps until the stream has passed it)."""
+    staged, run_ends = _acc_launch_args(run_blocks, chunks.device)
+    parity, lacc = fused_hier_acc_call(tables, chunks, run_ends, wb)
+    return parity, lacc, staged
+
+
+def gf_encode_with_crc_w32_fold(tables: torch.Tensor, chunks: torch.Tensor,
+                                wb: int = FUSED_WB, combine: str = "xla"):
+    """Parity AND one crc32c L per shard of a single extent (ceph_tpu's
+    gf_encode_with_crc_w32_fold :756): chunks (k, N) uint8, N a
+    multiple of the 4*wb-byte block.  Returns (parity (m, N) uint8,
+    L (k+m,) int64).  `combine` is the autotuner's axis:
+
+      * "kernel": K3 folds the blocks' Ls inside the launch;
+      * "xla": K2's per-block Ls, then one combine_crcs_pow2 chain of
+        small launches (the name keeps the JAX point's vocabulary).
+    """
+    block = 4 * wb
+    if combine == "kernel":
+        _check_encode_crc(tables, chunks, block)
+        # one run: its end is the block count, filled on the device
+        run_ends = torch.full((1,), chunks.shape[1] // block,
+                              dtype=torch.int64, device=chunks.device)
+        parity, lacc = fused_hier_acc_call(tables, chunks, run_ends, wb)
+        return parity, lacc[0]
+    if combine != "xla":
+        raise ValueError(f"unknown combine depth {combine!r}")
+    parity, ls = fused_hier_call(tables, chunks, wb)
+    return parity, cl.bits_to_u32(cl.combine_crcs_pow2(cl.u32_to_bits(ls),
+                                                       block))
+
+
+KERNEL_WRAPPERS = (gf_bitmatmul, fused_hier_call, gf_encode_with_crc_w32,
+                   fused_hier_acc_call)
 
 
 def launch_counts() -> dict[str, int]:
@@ -288,15 +433,16 @@ def reset_launch_counts() -> None:
 # ----------------------------------------------------------------------------
 
 def stage(host: np.ndarray, device: torch.device):
-    """(pinned host tensor, device tensor) for a uint8 numpy matrix: the
-    copy to the card is queued on the current stream without waiting.
-    The pinned tensor must stay referenced until the stream has passed
-    the copy (the caller keeps it in its handle)."""
-    host = np.ascontiguousarray(host, dtype=np.uint8)
+    """(pinned host tensor, device tensor) for a numpy array: the copy
+    to the card is queued on the current stream without waiting.  The
+    pinned tensor must stay referenced until the stream has passed the
+    copy (the caller keeps it in its handle)."""
+    host = np.ascontiguousarray(host)
     if device.type == "cpu":
         t = torch.from_numpy(host)
         return t, t
-    pinned = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
+    pinned = torch.empty(host.shape, dtype=torch.from_numpy(host).dtype,
+                         pin_memory=True)
     pinned.numpy()[...] = host
     return pinned, pinned.to(device, non_blocking=True)
 
@@ -330,71 +476,103 @@ def wait(event) -> None:
 # the multi-extent launch contract (ceph_tpu bitsliced.py:858-1160)
 # ----------------------------------------------------------------------------
 
-def gf_encode_extents_with_crc(tables, runs):
+def gf_encode_extents_with_crc(tables, runs, tile: int | None = None,
+                               wb: int | None = None, combine: str = "xla"):
     """Parity + one combined crc32c L per shard for every run of a
     drain: per run (parity (m, Wi) uint8, l (k+m,) uint32 over the run's
     body, tail_bytes (k+m, tail_len) uint8, body_bytes).  Fold with
-    crc32c_linear.fold_run_crc seeded per shard."""
+    crc32c_linear.fold_run_crc seeded per shard.  On the accumulator
+    path (combine="kernel") each L covers the run's every byte: the
+    tail is empty and body_bytes == Wi."""
     return gf_encode_extents_with_crc_finalize(
-        gf_encode_extents_with_crc_submit(tables, runs))
+        gf_encode_extents_with_crc_submit(tables, runs, tile=tile, wb=wb,
+                                          combine=combine))
 
 
-def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs) -> dict:
-    """Dispatch half: stage the drain's runs, launch parity + crc and the
-    per-run device L folds, queue the results' copies to the host, and
-    return a handle — nothing here waits for the card.
+def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs,
+                                      tile: int | None = None,
+                                      wb: int | None = None,
+                                      combine: str = "xla") -> dict:
+    """Dispatch half: stage the drain's runs, launch parity + crc (and,
+    on the "xla" combine, the per-run device L folds), queue the
+    results' copies to the host, and return a handle — nothing here
+    waits for the card.
 
-    Runs at least FUSED_TILE_HIER (128 KiB) wide take the hier entry
-    (L per FUSED_WB-word = 2 KiB sub-block), narrower drains the flat
-    entry (L per 2 KiB tile).  A drain mixing both splits into one launch of each,
-    demuxed back to the caller's run order at finalize.  Each run is
-    zero-padded at the back to a block multiple (zero bytes encode to
-    zero parity; the padded block's L is never read) and the runs
-    concatenate along the byte axis.  The handle's `path` names the
-    entry that served it ("hier_lsub" / "w32_flat")."""
+    `tile` (the hier threshold, default FUSED_TILE_HIER = 128 KiB), `wb`
+    (the hier crc block in words, default FUSED_WB) and `combine` are
+    the autotuned operating point (ops/autotune via the plugin).  Runs
+    at least `tile` wide take the hier kernels (L per 4*wb-byte block),
+    narrower drains the flat entry (L per 2 KiB tile).  A drain mixing
+    both splits into one launch of each, demuxed back to the caller's
+    run order at finalize.  Runs concatenate along the byte axis, each
+    zero-padded to a block multiple (zero bytes encode to zero parity):
+
+      * combine="kernel", hier: K3, path "hier_acc".  Each run is
+        padded at the FRONT — a zero prefix leaves L unchanged — so
+        the launch's one L per (run, shard) covers every byte of the
+        run and the host folds no tail.  The pads are in the handle.
+      * otherwise: K2, path "hier_lsub" or "w32_flat", padded at the
+        back; each run's full blocks fold on the device with one
+        combine_crcs_pow2 chain and the sub-block tail goes to the
+        host (the padded block's L is never read)."""
+    if combine not in ("xla", "kernel"):
+        raise ValueError(f"unknown combine depth {combine!r}")
     device = tables.device
     m, k = tables.shape[0], tables.shape[1]
     runs = [np.ascontiguousarray(r, dtype=np.uint8) for r in runs]
     if not runs or any(r.ndim != 2 or r.shape[0] != k for r in runs):
         raise ValueError("every run of one launch must be (k, W) with "
                          f"k={k}")
-    big_idx = [i for i, r in enumerate(runs)
-               if r.shape[1] >= FUSED_TILE_HIER]
+    tile_hier = tile or FUSED_TILE_HIER
+    wb = wb or FUSED_WB
+    big_idx = [i for i, r in enumerate(runs) if r.shape[1] >= tile_hier]
     if 0 < len(big_idx) < len(runs):
         small_idx = [i for i, r in enumerate(runs)
-                     if r.shape[1] < FUSED_TILE_HIER]
+                     if r.shape[1] < tile_hier]
         parts = [(idxs, gf_encode_extents_with_crc_submit(
-            tables, [runs[i] for i in idxs]))
+            tables, [runs[i] for i in idxs], tile=tile, wb=wb,
+            combine=combine))
             for idxs in (big_idx, small_idx)]
         return {"split": parts, "n_runs": len(runs),
                 "path": "+".join(h["path"] for _, h in parts)}
     hier = len(big_idx) == len(runs)
-    block = 4 * FUSED_WB if hier else FUSED_TILE
+    acc = hier and combine == "kernel"
+    block = 4 * wb if hier else FUSED_TILE
     meta = [r.shape[1] for r in runs]
-    padded = [np.pad(r, ((0, 0), (0, -r.shape[1] % block)))
-              if r.shape[1] % block else r for r in runs]
+    pads = [-w % block for w in meta]
+    padded = [np.pad(r, ((0, 0), (p, 0) if acc else (0, p))) if p else r
+              for r, p in zip(runs, pads)]
     big = padded[0] if len(padded) == 1 else np.concatenate(padded, axis=1)
     staged, dev = stage(big, device)
-    if hier:
-        parity_dev, ls = fused_hier_call(tables, dev, FUSED_WB)
-        path = "hier_lsub"
+    if acc:
+        parity_dev, l_dev, staged_ends = _hier_acc_core(
+            tables, dev, [pr.shape[1] // block for pr in padded], wb)
+        staged = (staged, staged_ends)
+        has_l = [True] * len(runs)
+        path = "hier_acc"
     else:
-        parity_dev, ls = gf_encode_with_crc_w32(tables, dev, block)
-        path = "w32_flat"
-    # per-run device combines of each run's full blocks: one L per shard
-    folds = []
-    has_l = []
-    coff = 0
-    for w, pr in zip(meta, padded):
-        nb = w // block
-        has_l.append(nb > 0)
-        if nb:
-            boff = coff // block
-            folds.append(cl.combine_crcs_pow2(
-                cl.u32_to_bits(ls[:, boff:boff + nb]), block))
-        coff += pr.shape[1]
-    l_dev = cl.bits_to_u32(torch.stack(folds)) if folds else None
+        if hier:
+            parity_dev, ls = fused_hier_call(tables, dev, wb)
+            path = "hier_lsub"
+        else:
+            parity_dev, ls = gf_encode_with_crc_w32(tables, dev, block)
+            path = "w32_flat"
+        # per-run device combines of each run's full blocks: one L per
+        # shard
+        folds = []
+        has_l = []
+        coff = 0
+        for w, pr in zip(meta, padded):
+            nb = w // block
+            has_l.append(nb > 0)
+            if nb:
+                boff = coff // block
+                folds.append(cl.combine_crcs_pow2(
+                    cl.u32_to_bits(ls[:, boff:boff + nb]), block))
+            coff += pr.shape[1]
+        l_dev = cl.bits_to_u32(torch.stack(folds)) if folds else None
     return {"meta": meta, "padded": padded, "block_bytes": block,
+            "pads": pads if acc else [0] * len(runs), "acc": acc,
             "r_tot": k + m, "m": m, "big_width": big.shape[1],
             "path": path, "has_l": has_l, "staged": staged,
             "parity_host": to_host_async(parity_dev),
@@ -404,7 +582,8 @@ def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs) -> dict:
 
 def gf_encode_extents_with_crc_finalize(handle: dict) -> list[tuple]:
     """Completion half: the only place that waits for the card.  Returns
-    the per-run (parity, l, tail_bytes, body_bytes) tuples."""
+    the per-run (parity, l, tail_bytes, body_bytes) tuples; on the
+    "hier_acc" path body == the run's width and the tail is empty."""
     if "split" in handle:
         out = [None] * handle["n_runs"]
         for idxs, sub in handle["split"]:
@@ -420,15 +599,17 @@ def gf_encode_extents_with_crc_finalize(handle: dict) -> list[tuple]:
     out = []
     coff = 0
     li = 0
-    for w, pr, has in zip(handle["meta"], handle["padded"], handle["has_l"]):
-        par = parity_big[:, coff:coff + w]
-        body = (w // block) * block
+    for w, pr, pad, has in zip(handle["meta"], handle["padded"],
+                               handle["pads"], handle["has_l"]):
+        par = parity_big[:, coff + pad:coff + pad + w]
+        body = w if handle["acc"] else (w // block) * block
         if has:
             l = ls[li]
             li += 1
         else:
             l = np.zeros(r_tot, dtype=np.uint32)
-        tail_bytes = np.concatenate([pr[:, body:w], par[:, body:w]], axis=0) \
+        tail_bytes = np.concatenate([pr[:, pad + body:pad + w],
+                                     par[:, body:w]], axis=0) \
             if w > body else np.zeros((r_tot, 0), dtype=np.uint8)
         out.append((par, l, tail_bytes, body))
         coff += pr.shape[1]

@@ -214,8 +214,8 @@ class ECBackend:
         self.completed: int = 0
         self.batched_launches: int = 0
         self.batched_extents: int = 0
-        # kernel path of the last fused drain ("hier_lsub" / "w32_flat",
-        # "+"-joined for a split drain; None before the first)
+        # kernel path of the last fused drain ("hier_acc" / "hier_lsub" /
+        # "w32_flat", "+"-joined for a split drain; None before the first)
         self.fused_path: str | None = None
         self._hold = 0
         self.dispatch_depth = max(1, int(dispatch_depth))
@@ -235,10 +235,17 @@ class ECBackend:
         # (reference HashInfo projected sizes, ECUtil.h:101-160)
         self._projected: dict[hobject_t, dict] = {}
 
-    def _note_fused_path(self, path: str) -> None:
+    def _note_fused_path(self, path: str | None) -> None:
+        """Record which kernel family served a drain: paths starting
+        with "hier" (the hier kernels K2/K3, a split drain led by them)
+        count as kernel drains, anything else (the flat entry) as a
+        fallback, as ceph_tpu's ECBackend counts them."""
         self.fused_path = path
         if self.perf:
-            self.perf.inc("ec_fused_kernel_drains")
+            self.perf.inc(
+                "ec_fused_kernel_drains"
+                if path and path.startswith("hier")
+                else "ec_fused_fallback_drains")
 
     @contextmanager
     def batch(self):

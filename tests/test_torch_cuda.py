@@ -15,11 +15,21 @@ pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture()
-def cuda_device():
+def cuda_device(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    # a plugin's first fused encode sweeps the operating point: keep its
+    # cache inside the test's own directory
+    monkeypatch.setenv("CEPH_TPU_AUTOTUNE_CACHE",
+                       str(tmp_path / "autotune.json"))
     from ceph_tpu_torch import resolve_device
     return resolve_device("cuda")
+
+
+def _pin(codec, combine):
+    from ceph_tpu_torch.ops import autotune
+    codec._fused_point = dict(autotune.default_point(), combine=combine)
+    return codec
 
 
 def _tables(mat, dev):
@@ -64,13 +74,15 @@ def test_k2_entries_match_plain(cuda_device, k, m, n, wb):
         assert torch.equal(p1, p2) and torch.equal(l1, l2)
 
 
-def test_submit_does_not_synchronise(cuda_device):
-    """The dispatch half of the extents path and the plain encode queue
-    their work without waiting for the card: finalize is the only
-    place that synchronises."""
+@pytest.mark.parametrize("combine", ["xla", "kernel"])
+def test_submit_does_not_synchronise(cuda_device, combine):
+    """The dispatch half of the extents path (K2 + folds, or K3 with its
+    pinned run-metadata copy) and the plain encode queue their work
+    without waiting for the card: finalize is the only place that
+    synchronises."""
     from ceph_tpu_torch.ec import ErasureCodePluginRegistry
-    codec = ErasureCodePluginRegistry.instance().factory(
-        "torch", {"k": "8", "m": "3", "device": str(cuda_device)})
+    codec = _pin(ErasureCodePluginRegistry.instance().factory(
+        "torch", {"k": "8", "m": "3", "device": str(cuda_device)}), combine)
     rng = np.random.default_rng(6)
     runs = [rng.integers(0, 256, (8, w), dtype=np.uint8)
             for w in (1 << 19, 8192, 3000)]
@@ -91,8 +103,9 @@ def test_plugin_on_card_matches_cpu(cuda_device):
     from ceph_tpu_torch.ec import ErasureCodePluginRegistry
     reg = ErasureCodePluginRegistry.instance()
     prof = {"k": "8", "m": "3"}
-    gpu = reg.factory("torch", dict(prof, device=str(cuda_device)))
-    cpu = reg.factory("torch", dict(prof, device="cpu"))
+    gpu = _pin(reg.factory("torch", dict(prof, device=str(cuda_device))),
+               "xla")
+    cpu = _pin(reg.factory("torch", dict(prof, device="cpu")), "xla")
     rng = np.random.default_rng(4)
     chunks = rng.integers(0, 256, (8, 4096 * 3 + 64), dtype=np.uint8)
     np.testing.assert_array_equal(gpu.encode_chunks(chunks),
@@ -115,3 +128,83 @@ def test_plugin_on_card_matches_cpu(cuda_device):
         for x, y in zip(a[:3], b[:3]):
             np.testing.assert_array_equal(x, y)
         assert a[3] == b[3]
+
+
+@pytest.mark.parametrize("k,m,wb,blocks", [
+    (8, 3, 512, [256]),                    # one 512 KiB run
+    (8, 3, 512, [256, 151]),               # two runs
+    (4, 2, 128, [3, 0, 1, 9, 2]),          # an empty run among them
+    (10, 4, 1024, [1, 1, 70])])
+def test_k3_matches_plain(cuda_device, k, m, wb, blocks):
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(sum(blocks) + k)
+    tab = _tables(gf.cauchy_rs_matrix(k, m)[k:], cuda_device)
+    n = 4 * wb * sum(blocks)
+    dev = torch.from_numpy(rng.integers(0, 256, (k, n), dtype=np.uint8)) \
+        .to(cuda_device)
+    _staged, ends = bs._acc_launch_args(blocks, cuda_device)
+    before = bs.fused_hier_acc_call.launches
+    p1, l1 = bs.fused_hier_acc_call(tab, dev, ends, wb)
+    p2, l2 = bs.fused_hier_acc_call_plain(tab, dev, ends, wb)
+    torch.cuda.synchronize()
+    assert bs.fused_hier_acc_call.launches == before + 1
+    assert torch.equal(p1, p2) and torch.equal(l1, l2)
+    assert l1.shape == (len(blocks), k + m)
+
+
+def test_fold_entry_and_codec_on_card_match_cpu(cuda_device):
+    """The single-extent fold at both combines and the plugin's
+    device-resident entries on the card against the CPU codec."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import bitsliced as bs
+    reg = ErasureCodePluginRegistry.instance()
+    gpu = reg.factory("torch", {"k": "8", "m": "3",
+                                "device": str(cuda_device)})
+    cpu = reg.factory("torch", {"k": "8", "m": "3", "device": "cpu"})
+    rng = np.random.default_rng(12)
+    chunks = rng.integers(0, 256, (8, 1 << 17), dtype=np.uint8)
+    dev = torch.from_numpy(chunks).to(cuda_device)
+    want = bs.gf_encode_with_crc_w32_fold(cpu._enc_tables,
+                                          torch.from_numpy(chunks))
+    for combine in ("xla", "kernel"):
+        par, l = bs.gf_encode_with_crc_w32_fold(gpu._enc_tables, dev,
+                                                combine=combine)
+        assert torch.equal(par.cpu(), want[0])
+        assert torch.equal(l.cpu(), want[1])
+    odd = torch.from_numpy(chunks[:, :1000].copy())
+    assert torch.equal(gpu.encode_chunks_device(odd.to(cuda_device)).cpu(),
+                       cpu.encode_chunks_device(odd))
+    stripes = torch.from_numpy(rng.integers(0, 256, (5, 8, 4096),
+                                            dtype=np.uint8))
+    assert torch.equal(gpu.encode_stripes(stripes.to(cuda_device)).cpu(),
+                       cpu.encode_stripes(stripes))
+    surv = (0, 1, 2, 4, 5, 6, 8, 9)
+    assert torch.equal(
+        gpu.decode_chunks_device(odd.to(cuda_device), surv, (3, 7)).cpu(),
+        cpu.decode_chunks_device(odd, surv, (3, 7)))
+
+
+def test_autotune_sweep_on_card(cuda_device, monkeypatch):
+    """The sweep on the card: every candidate validates, the winner is
+    cached under this card's key, and a second plugin init reads it
+    without measuring."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import autotune
+    reg = ErasureCodePluginRegistry.instance()
+    codec = reg.factory("torch", {"k": "8", "m": "3",
+                                  "device": str(cuda_device)})
+    report = []
+    best = autotune.fused_operating_point(
+        8, 3, tables=codec._enc_tables, mat=codec.matrix[8:], force=True,
+        report=report)
+    assert len(report) == 6 and all(r for _, r in report)
+    assert best in [c for c, _ in report]
+    key = autotune._device_key(cuda_device, 8, 3)
+    assert key.startswith(f"cuda/{torch.cuda.get_device_name(cuda_device)}/sm")
+    assert autotune._load_cache()["entries"][key]["wb"] == best["wb"]
+    calls = []
+    monkeypatch.setattr(autotune, "_measure", lambda *a: calls.append(a))
+    again = reg.factory("torch", {"k": "8", "m": "3",
+                                  "device": str(cuda_device)})
+    assert again.fused_point() == best and not calls

@@ -263,9 +263,13 @@ def test_degraded_reads(down):
 
 def test_big_appends_take_hier_entry():
     """Objects whose runs reach the hier threshold (128 KiB per shard):
-    the port serves them with the hier entry, mixed with a small one in
-    one batch (the split path); stores still equal ceph_tpu's."""
+    the port serves them with K2's hier entry (its plugin pinned at the
+    combine="xla" point), mixed with a small one in one batch (the
+    split path); stores still equal ceph_tpu's."""
+    from ceph_tpu_torch.ops import autotune
     tw = Twin(k=4, m=2, chunk=4096)
+    tw.t.backend.ec_impl._fused_point = dict(autotune.default_point(),
+                                             combine="xla")
     with tw.j.backend.batch(), tw.t.backend.batch():
         tw.submit(("write", "big", 0, _payload(70, 4 * 128 * 1024 + 5)))
         tw.submit(("write", "small", 0, _payload(71, 3000)))
@@ -273,3 +277,36 @@ def test_big_appends_take_hier_entry():
     np.testing.assert_array_equal(tw.check_read("big", down=(1,)),
                                   _payload(70, 4 * 128 * 1024 + 5))
     tw.check_stores()
+
+
+def test_writes_at_pinned_kernel_point():
+    """The port's backend with its plugin pinned at a combine="kernel"
+    point (K3's plain version here; a 1536-byte crc block that does not
+    divide the 4 KiB chunk, so runs carry odd tails for the front pad)
+    against ceph_tpu's ECBackend at its default: equal shard bytes,
+    xattrs (HashInfo) and omap, through appends chained in a pipeline
+    window, a mixed batch and an overwrite, and equal degraded reads."""
+    tw = Twin(k=4, m=2, chunk=4096)
+    point = {"tile": 8192, "wb": 384, "extract": "planar",
+             "combine": "kernel"}
+    tw.t.backend.ec_impl._fused_point = point
+    paths = []
+    with tw.j.backend.pipeline(), tw.t.backend.pipeline():
+        for i in range(3):
+            tw.submit(("write", "acc", i * 5 * 16384,
+                       _payload(80 + i, 5 * 16384)))
+            paths.append(tw.t.backend.fused_path)
+    assert set(paths) == {"hier_acc"}
+    with tw.j.backend.batch(), tw.t.backend.batch():
+        tw.submit(("write", "accbig", 0, _payload(83, 7 * 16384 + 5)))
+        tw.submit(("write", "accsmall", 0, _payload(84, 3000)))
+    assert tw.t.backend.fused_path == "hier_acc+w32_flat"
+    tw.submit(("write", "acc", 20000, _payload(85, 700)))
+    whole = np.concatenate([_payload(80 + i, 5 * 16384) for i in range(3)])
+    whole[20000:20700] = _payload(85, 700)
+    np.testing.assert_array_equal(tw.check_read("acc", down=(0, 5)), whole)
+    np.testing.assert_array_equal(tw.check_read("accbig", down=(2,)),
+                                  _payload(83, 7 * 16384 + 5))
+    tw.check_stores()
+    hinfo = tw.t.backend.shards.get_hinfo(0, tw.t.oid("accbig"))
+    assert hinfo.crc_valid

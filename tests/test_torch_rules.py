@@ -57,8 +57,12 @@ def _operands():
 @pytest.mark.parametrize("entry", [
     lambda t, c: bs.gf_bitmatmul(t, c),
     lambda t, c: bs.fused_hier_call(t, c),
-    lambda t, c: bs.gf_encode_with_crc_w32(t, c)],
-    ids=["gf_bitmatmul", "fused_hier_call", "gf_encode_with_crc_w32"])
+    lambda t, c: bs.gf_encode_with_crc_w32(t, c),
+    lambda t, c: bs.fused_hier_acc_call(
+        t, c, torch.tensor([2], dtype=torch.int64, device=c.device)
+        if isinstance(c, torch.Tensor) else torch.tensor([2]))],
+    ids=["gf_bitmatmul", "fused_hier_call", "gf_encode_with_crc_w32",
+         "fused_hier_acc_call"])
 def test_wrappers_refuse_bad_operands(entry):
     tables, chunks = _operands()
     # operands on two devices ("meta" stands in for the card here)
@@ -91,8 +95,11 @@ def test_cpu_wrappers_do_not_count_launches():
     bs.gf_bitmatmul(tables, chunks)
     bs.fused_hier_call(tables, chunks)
     bs.gf_encode_with_crc_w32(tables, chunks)
+    bs.fused_hier_acc_call(tables, chunks,
+                           torch.tensor([2], dtype=torch.int64))
     assert bs.launch_counts() == {"gf_bitmatmul": 0, "fused_hier_call": 0,
-                                  "gf_encode_with_crc_w32": 0}
+                                  "gf_encode_with_crc_w32": 0,
+                                  "fused_hier_acc_call": 0}
 
 
 def test_extents_refuse_runs_of_another_k():
