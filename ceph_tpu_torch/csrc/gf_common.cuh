@@ -1,5 +1,5 @@
 // Shared device helpers of the GF(2^8) kernels (gf_bitmatmul.cu,
-// gf_encode_crc.cu, gf_encode_crc_acc.cu).
+// gf_bitmatmul_stream.cu, gf_encode_crc.cu, gf_encode_crc_acc.cu).
 //
 // A GF(2^8) matrix apply out[i] = XOR_j c[i][j] * in[j] is done with
 // per-coefficient 256-byte product tables staged in shared memory: the
@@ -35,6 +35,65 @@ namespace ctt {
 constexpr int kMaxRows = 8;
 constexpr uint32_t kCrcPoly = 0x82F63B78u;  // crc32c, reflected
 constexpr int kWarpFoldLevels = 5;          // operator levels of the fold
+
+// The 16-byte column strips [begin, end) a block walks, `step` apart:
+// with tile_vec > 0 block b owns strips [b*tile_vec, (b+1)*tile_vec);
+// with 0 the grid strides over all of them.  `per_pass` strips are
+// taken by the block's threads at once.
+struct Span {
+  int64_t begin, end, step;
+};
+
+__device__ inline Span block_span(int64_t nvec, int64_t tile_vec,
+                                  int per_pass) {
+  Span s;
+  if (tile_vec > 0) {
+    s.begin = static_cast<int64_t>(blockIdx.x) * tile_vec;
+    s.end = s.begin + tile_vec < nvec ? s.begin + tile_vec : nvec;
+    s.step = per_pass;
+  } else {
+    s.begin = static_cast<int64_t>(blockIdx.x) * per_pass;
+    s.end = nvec;
+    s.step = static_cast<int64_t>(gridDim.x) * per_pass;
+  }
+  return s;
+}
+
+// Blocks of a launch over nvec strips: ceil(nvec / tile_vec) with a
+// tile, else enough for one strip per `per_pass` slot, at most 4096.
+inline long long span_blocks(long long nvec, long long tile_vec,
+                             int per_pass) {
+  long long blocks = tile_vec > 0 ? (nvec + tile_vec - 1) / tile_vec
+                                  : (nvec + per_pass - 1) / per_pass;
+  if (tile_vec <= 0 && blocks > 4096) blocks = 4096;
+  return blocks < 1 ? 1 : blocks;
+}
+
+// 16 bytes at p as 4 little-endian words; `vec` rows are 16-byte
+// aligned and whole, otherwise only the first `rem` bytes are read.
+__device__ inline void load16(const uint8_t* p, int64_t rem, int vec,
+                              uint32_t (&w)[4]) {
+  if (vec) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    return;
+  }
+  w[0] = w[1] = w[2] = w[3] = 0;
+  for (int b = 0; b < 16 && b < rem; ++b)
+    w[b >> 2] |= static_cast<uint32_t>(p[b]) << (8 * (b & 3));
+}
+
+__device__ inline void store16(uint8_t* p, int64_t rem, int vec,
+                               uint32_t w0, uint32_t w1, uint32_t w2,
+                               uint32_t w3) {
+  if (vec) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w0, w1, w2, w3);
+    return;
+  }
+  const uint32_t w[4] = {w0, w1, w2, w3};
+  for (int b = 0; b < 16 && b < rem; ++b)
+    p[b] = static_cast<uint8_t>(w[b >> 2] >> (8 * (b & 3)));
+}
 
 // Copy `nbytes` (a multiple of 16) from global to shared memory with
 // 16-byte loads; every thread of the block takes part.

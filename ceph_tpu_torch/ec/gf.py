@@ -51,6 +51,15 @@ def gf_mul(a: int, b: int) -> int:
     return int(GF_EXP[int(GF_LOG[a]) + int(GF_LOG[b])])
 
 
+def gf_div(a: int, b: int) -> int:
+    """Scalar divide in GF(2^8); b must be nonzero."""
+    if b == 0:
+        raise ZeroDivisionError("GF(2^8) division by zero")
+    if a == 0:
+        return 0
+    return int(GF_EXP[(int(GF_LOG[a]) - int(GF_LOG[b])) % 255])
+
+
 def gf_inv(a: int) -> int:
     if a == 0:
         raise ZeroDivisionError("GF(2^8) inverse of zero")
@@ -78,6 +87,15 @@ def mul_table() -> np.ndarray:
     return out
 
 
+def gf_mul_region(c: int, data: np.ndarray) -> np.ndarray:
+    """Multiply every byte of `data` (uint8 ndarray) by constant c."""
+    if c == 0:
+        return np.zeros_like(data)
+    if c == 1:
+        return data.copy()
+    return mul_table()[c][data]
+
+
 def product_tables(mat: np.ndarray) -> np.ndarray:
     """(r, k) coefficients -> (r, k, 256) uint8: out[i, j, x] =
     mat[i, j] * x.  The operand the CUDA kernels stage in shared
@@ -90,9 +108,16 @@ def gf_matvec(mat: np.ndarray, chunks: np.ndarray) -> np.ndarray:
     """GF(2^8) matrix x "vector of chunks" product on the host.
 
     mat: (r, k) uint8 coefficient matrix; chunks: (k, n) uint8.
-    Returns (r, n) uint8: out[i] = XOR_j mat[i,j] * chunks[j]."""
+    Returns (r, n) uint8: out[i] = XOR_j mat[i,j] * chunks[j].  Widths
+    of at least 1024 bytes take the native SIMD library (common/native)
+    when it is built; its bytes are identical to the numpy path's."""
     r, k = mat.shape
     assert chunks.shape[0] == k, (mat.shape, chunks.shape)
+    if chunks.shape[1] >= 1024:  # native SIMD path when worth the ctypes hop
+        from ..common import native
+        got = native.gf8_matvec(mat, chunks)
+        if got is not None:
+            return got
     out = np.zeros((r, chunks.shape[1]), dtype=np.uint8)
     lut = mul_table()
     for i in range(r):
@@ -176,6 +201,18 @@ def expand_to_bitmatrix(mat: np.ndarray) -> np.ndarray:
     r, k = mat.shape
     bm = _bitmatrix_table()[np.asarray(mat, dtype=np.uint8)]  # (r,k,8,8)
     return np.ascontiguousarray(bm.transpose(0, 2, 1, 3).reshape(8 * r, 8 * k))
+
+
+def bitmatrix_matvec(bitmat: np.ndarray, chunks: np.ndarray) -> np.ndarray:
+    """Host check-model of the bit-matrix path: bit-unpack, 0/1 matmul
+    mod 2, pack.  chunks (k, n) uint8, bitmat (8r, 8k) from
+    expand_to_bitmatrix -> (r, n) uint8.  Unpacking along axis 0 gives
+    row j*8 + i = bit i of chunk j, the bit-matrix's column layout."""
+    k = bitmat.shape[1] // 8
+    assert chunks.shape[0] == k
+    bits = np.unpackbits(chunks, axis=0, bitorder="little")      # (8k, n)
+    prod = (bitmat.astype(np.uint32) @ bits.astype(np.uint32)) & 1
+    return np.packbits(prod.astype(np.uint8), axis=0, bitorder="little")
 
 
 # ----------------------------------------------------------------------------

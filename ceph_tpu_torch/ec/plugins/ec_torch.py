@@ -14,6 +14,10 @@ request without a GPU raises at init.
 
 The fused write path runs at the operating point ops/autotune picks for
 the card (`fused_point`, swept and cached at the first fused encode).
+`_use_w32` (ceph_tpu's attribute of the same name, True here on every
+device) picks the branch: False takes the write path's byte branch
+(K2's byte entry at 2 KiB tiles, path "bytes"), and the operating point
+is then not consulted.
 The device-resident entries (`encode_chunks_device`, `encode_stripes`,
 `decode_chunks_device`, `encode_words_with_crc`) take and return
 tensors on the codec's device, with no host staging: the contract of
@@ -59,6 +63,7 @@ class ErasureCodeTorch(ErasureCode):
         self._codec_sig: tuple | None = None
         self._enc_tables = None            # (m, k, 256) on self.device
         self._fused_point: dict | None = None   # lazy autotune result
+        self._use_w32 = True        # False: the write path's byte branch
         self._decode_cache: dict[tuple, tuple] = {}
         self._lock = threading.Lock()
 
@@ -158,9 +163,11 @@ class ErasureCodeTorch(ErasureCode):
             self._enc_tables, chunks, point["wb"], point["combine"])
 
     def _point_kwargs(self) -> dict:
+        if not self._use_w32:
+            return {"use_w32": False}
         point = self.fused_point()
         return {"tile": point["tile"], "wb": point["wb"],
-                "combine": point["combine"]}
+                "combine": point["combine"], "use_w32": True}
 
     def encode_extents_with_crc(self, runs: list[np.ndarray]):
         """Parity + ONE combined crc L per shard for every run of a

@@ -1,7 +1,7 @@
 """GF(2^8) parity and fused parity+crc32c on the card: kernel wrappers,
 their plain PyTorch versions, and the multi-extent launch contract.
 
-Three hand-written CUDA kernels (csrc/) carry the EC data plane:
+Four hand-written CUDA kernels (csrc/) carry the EC data plane:
 
 * K1 `gf_bitmatmul` (csrc/gf_bitmatmul.cu) — out = C x data over
   GF(2^8) for an (r, k) coefficient matrix.  Replaces Pallas kernel #3
@@ -10,15 +10,22 @@ Three hand-written CUDA kernels (csrc/) carry the EC data plane:
   plugin).  Serves every decode and the plain encode of overwrite
   extents.
 * K2 `gf_encode_crc` (csrc/gf_encode_crc.cu) — parity plus the crc32c
-  linear part L of every block of all k+m shard rows, one launch.  Two
-  entries with the contracts of Pallas kernels #1 and #2:
+  linear part L of every block of all k+m shard rows, one launch.
+  Three entries with the contracts of Pallas kernels #1, #2 and #6:
   `fused_hier_call` (L per 4*wb-byte sub-block, ceph_tpu's
-  `_fused_hier_call` :586) and `gf_encode_with_crc_w32` (L per tile,
-  ceph_tpu's `gf_encode_with_crc_pallas_w32` :459).
+  `_fused_hier_call` :586), `gf_encode_with_crc_w32` (L per tile,
+  ceph_tpu's `gf_encode_with_crc_pallas_w32` :459) and
+  `gf_encode_with_crc` (the same on the byte layout, ceph_tpu's
+  `gf_encode_with_crc_pallas` :411; the write path's "bytes" branch).
 * K3 `gf_encode_crc_acc` (csrc/gf_encode_crc_acc.cu) — parity plus ONE
   L per (run, shard) of a drain's front-padded runs, one launch: the
   contract of Pallas kernel #4 (`_fused_hier_acc_call` :626), entry
   `fused_hier_acc_call`.  The write path's `combine="kernel"` point.
+* K4 `gf_bitmatmul_stream` (csrc/gf_bitmatmul_stream.cu) — K1's
+  function with the contraction (the k source rows) split into groups
+  that separate threads reduce and XOR together: the counterpart of
+  Pallas kernel #7 (`_make_gf_kernel_w32_stream` :245, reached through
+  `gf_bitmatmul_pallas_w32(stream=True)`), on the tools/w32_sweep path.
 
 The coefficient operand of every kernel is the (r, k, 256) product
 table of the matrix (ec/gf.product_tables).  The kernels take bytes:
@@ -130,24 +137,44 @@ def gf_bitmatmul_plain(tables: torch.Tensor,
     return out.to(torch.uint8)
 
 
-def gf_bitmatmul(tables: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
+def _check_tile(tile: int | None, n: int) -> int:
+    """The launch's bytes of each row per thread block (0 = the
+    kernel's own grid-stride launch)."""
+    if tile is None:
+        return 0
+    if tile <= 0 or tile % 16:
+        raise ValueError(f"tile must be a positive multiple of 16, got {tile}")
+    if -(-n // tile) >= 1 << 31:
+        raise ValueError(f"tile {tile} gives too many blocks for width {n}")
+    return tile
+
+
+def _check_tables_smem(name: str, r: int, k: int) -> None:
+    if r * k * 256 > SMEM_LIMIT:
+        raise ValueError(f"{name}: {r}x{k} product tables exceed the "
+                         "shared memory of one block")
+
+
+def gf_bitmatmul(tables: torch.Tensor, chunks: torch.Tensor,
+                 tile: int | None = None) -> torch.Tensor:
     """K1: (r, k, 256) product tables x (k, N) uint8 chunks -> (r, N)
     uint8.  CUDA tensors launch csrc/gf_bitmatmul.cu; CPU tensors run
-    gf_bitmatmul_plain."""
+    gf_bitmatmul_plain.  `tile` (bytes of each row per thread block,
+    a multiple of 16) sets a grid of ceil(N / tile) blocks; None keeps
+    the kernel's grid-stride launch (tools/w32_sweep sweeps it)."""
     r, k, n = _check_operands(tables, chunks)
+    tile_b = _check_tile(tile, n)
     dev = chunks.device
     if dev.type == "cpu":
         return gf_bitmatmul_plain(tables, chunks)
-    if r * k * 256 > SMEM_LIMIT:
-        raise ValueError(f"gf_bitmatmul: {r}x{k} product tables exceed "
-                         "the shared memory of one block")
+    _check_tables_smem("gf_bitmatmul", r, k)
     out = torch.empty((r, n), dtype=torch.uint8, device=dev)
     if n == 0:
         return out
     from . import _build
     lib = _build.load()
     rc = lib.ctt_gf_bitmatmul(tables.data_ptr(), chunks.data_ptr(),
-                              out.data_ptr(), r, k, n,
+                              out.data_ptr(), r, k, n, tile_b,
                               _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_bitmatmul launch failed: CUDA error {rc}")
@@ -156,6 +183,88 @@ def gf_bitmatmul(tables: torch.Tensor, chunks: torch.Tensor) -> torch.Tensor:
 
 
 gf_bitmatmul.launches = 0
+
+
+# ----------------------------------------------------------------------------
+# K4: GF(2^8) matrix apply with a split contraction
+# ----------------------------------------------------------------------------
+
+MAX_STREAM_GROUPS = 8        # K4's default G: at most 8 lanes per strip
+
+
+def stream_groups(k: int) -> int:
+    """K4's contraction groups G for k source rows: the largest power of
+    two <= min(8, k // 2), at least 1, so every group owns at least two
+    rows (a group of one row spends nearly as many shuffles on the
+    reduction as lookups on its row) and the G lanes of a column strip
+    lie in one warp.  k=8 -> 4, k=4 and k=6 -> 2, k < 4 -> 1 (K1's work
+    split).  The rule depends on k alone; on the H100 the best G also
+    depends on the width (chip_smoke.py's k4_groups table, PERF.md)."""
+    g = 1
+    while 2 * g <= min(MAX_STREAM_GROUPS, k // 2):
+        g *= 2
+    return g
+
+
+def _check_groups(groups: int | None, k: int) -> int:
+    g = stream_groups(k) if groups is None else int(groups)
+    if g < 1 or g > 32 or g & (g - 1):
+        raise ValueError(f"groups must be a power of two in [1, 32], got {g}")
+    return g
+
+
+def gf_bitmatmul_stream_plain(tables: torch.Tensor, chunks: torch.Tensor,
+                              groups: int | None = None) -> torch.Tensor:
+    """Plain version of K4, in the TPU kernel's grid order: the partial
+    of each contraction group (source rows j with j % G == g, g = 0 ..
+    G-1) by K1's plain version, XOR-accumulated into the output one
+    group after another — another order than K1's plain version, which
+    contracts all rows at once."""
+    r, k, _ = tables.shape
+    g_n = _check_groups(groups, k)
+    out = torch.zeros((r, chunks.shape[1]), dtype=torch.uint8,
+                      device=chunks.device)
+    for g in range(min(g_n, k)):
+        rows = list(range(g, k, g_n))
+        out ^= gf_bitmatmul_plain(tables[:, rows].contiguous(),
+                                  chunks[rows].contiguous())
+    return out
+
+
+def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
+                        tile: int | None = None,
+                        groups: int | None = None) -> torch.Tensor:
+    """K4: K1's function, (r, k, 256) tables x (k, N) uint8 chunks ->
+    (r, N) uint8, with the k-row contraction split over `groups` lanes
+    per 16-byte column strip (default stream_groups(k)) whose partials
+    are XOR-reduced with warp shuffles.  The counterpart of ceph_tpu's
+    gf_bitmatmul_pallas_w32(stream=True); serves every k <= 32 and every
+    width, ragged too.  `tile` as for K1.  CUDA tensors launch
+    csrc/gf_bitmatmul_stream.cu; CPU tensors run
+    gf_bitmatmul_stream_plain."""
+    r, k, n = _check_operands(tables, chunks)
+    tile_b = _check_tile(tile, n)
+    g = _check_groups(groups, k)
+    dev = chunks.device
+    if dev.type == "cpu":
+        return gf_bitmatmul_stream_plain(tables, chunks, g)
+    _check_tables_smem("gf_bitmatmul_stream", r, k)
+    out = torch.empty((r, n), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    from . import _build
+    lib = _build.load()
+    rc = lib.ctt_gf_bitmatmul_stream(tables.data_ptr(), chunks.data_ptr(),
+                                     out.data_ptr(), r, k, n, tile_b, g,
+                                     _stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"gf_bitmatmul_stream launch failed: CUDA error "
+                           f"{rc}")
+    gf_bitmatmul_stream.launches += 1
+    return out
+
+
+gf_bitmatmul_stream.launches = 0
 
 
 # ----------------------------------------------------------------------------
@@ -293,6 +402,49 @@ def gf_encode_with_crc_w32(tables: torch.Tensor, chunks: torch.Tensor,
 gf_encode_with_crc_w32.launches = 0
 
 
+@functools.lru_cache(maxsize=16)
+def _cmat_bytes(tile: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(cl.crc_tile_matrix(tile)).to(
+        device=device, dtype=torch.float32)
+
+
+def gf_encode_with_crc_plain(tables: torch.Tensor, chunks: torch.Tensor,
+                             tile: int = FUSED_TILE):
+    """Plain version of the byte entry, by the byte-layout algorithm of
+    Pallas kernel #6 (ceph_tpu's gf_encode_with_crc_xla :807): K1's
+    plain parity, then the 8 bit-planes of every `tile`-byte block of
+    all k+m rows against the (8*tile, 32) byte crc matrix."""
+    parity = gf_bitmatmul_plain(tables, chunks)
+    allsh = torch.cat([chunks, parity], dim=0)
+    r, n = allsh.shape
+    nt = n // tile
+    blocks = allsh.reshape(r * nt, tile).to(torch.int32)
+    cm = _cmat_bytes(tile, chunks.device)
+    acc = torch.zeros((r * nt, 32), dtype=torch.float32, device=chunks.device)
+    for i in range(8):
+        acc += ((blocks >> i) & 1).to(torch.float32) @ \
+            cm[i * tile:(i + 1) * tile]
+    return parity, cl.bits_to_u32(acc.to(torch.int32) & 1).reshape(r, nt)
+
+
+def gf_encode_with_crc(tables: torch.Tensor, chunks: torch.Tensor,
+                       tile: int = FUSED_TILE):
+    """K2, byte entry (contract of Pallas kernel #6): parity (m, N)
+    uint8 and one L per `tile` bytes of all k+m rows, (k+m, N // tile)
+    int64.  The write path's "bytes" branch (use_w32=False) launches it
+    at the 2 KiB tile."""
+    _check_encode_crc(tables, chunks, tile)
+    if chunks.device.type == "cpu":
+        return gf_encode_with_crc_plain(tables, chunks, tile)
+    parity, ls, launched = _encode_crc_launch(tables, chunks, tile)
+    if launched:
+        gf_encode_with_crc.launches += 1
+    return parity, ls
+
+
+gf_encode_with_crc.launches = 0
+
+
 # ----------------------------------------------------------------------------
 # K3: fused parity + one crc32c L per (run, shard)
 # ----------------------------------------------------------------------------
@@ -416,7 +568,8 @@ def gf_encode_with_crc_w32_fold(tables: torch.Tensor, chunks: torch.Tensor,
 
 
 KERNEL_WRAPPERS = (gf_bitmatmul, fused_hier_call, gf_encode_with_crc_w32,
-                   fused_hier_acc_call)
+                   fused_hier_acc_call, gf_encode_with_crc,
+                   gf_bitmatmul_stream)
 
 
 def launch_counts() -> dict[str, int]:
@@ -477,7 +630,8 @@ def wait(event) -> None:
 # ----------------------------------------------------------------------------
 
 def gf_encode_extents_with_crc(tables, runs, tile: int | None = None,
-                               wb: int | None = None, combine: str = "xla"):
+                               wb: int | None = None, combine: str = "xla",
+                               use_w32: bool = True):
     """Parity + one combined crc32c L per shard for every run of a
     drain: per run (parity (m, Wi) uint8, l (k+m,) uint32 over the run's
     body, tail_bytes (k+m, tail_len) uint8, body_bytes).  Fold with
@@ -486,13 +640,14 @@ def gf_encode_extents_with_crc(tables, runs, tile: int | None = None,
     tail is empty and body_bytes == Wi."""
     return gf_encode_extents_with_crc_finalize(
         gf_encode_extents_with_crc_submit(tables, runs, tile=tile, wb=wb,
-                                          combine=combine))
+                                          combine=combine, use_w32=use_w32))
 
 
 def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs,
                                       tile: int | None = None,
                                       wb: int | None = None,
-                                      combine: str = "xla") -> dict:
+                                      combine: str = "xla",
+                                      use_w32: bool = True) -> dict:
     """Dispatch half: stage the drain's runs, launch parity + crc (and,
     on the "xla" combine, the per-run device L folds), queue the
     results' copies to the host, and return a handle — nothing here
@@ -514,7 +669,12 @@ def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs,
       * otherwise: K2, path "hier_lsub" or "w32_flat", padded at the
         back; each run's full blocks fold on the device with one
         combine_crcs_pow2 chain and the sub-block tail goes to the
-        host (the padded block's L is never read)."""
+        host (the padded block's L is never read).
+
+    `use_w32=False` is ceph_tpu's byte branch (its plugin's `_use_w32`):
+    no split and no hier entry; every run is back-padded to the 2 KiB
+    tile and the drain is one launch of K2's byte entry
+    (gf_encode_with_crc), folded as above, path "bytes"."""
     if combine not in ("xla", "kernel"):
         raise ValueError(f"unknown combine depth {combine!r}")
     device = tables.device
@@ -525,7 +685,8 @@ def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs,
                          f"k={k}")
     tile_hier = tile or FUSED_TILE_HIER
     wb = wb or FUSED_WB
-    big_idx = [i for i, r in enumerate(runs) if r.shape[1] >= tile_hier]
+    big_idx = [i for i, r in enumerate(runs)
+               if use_w32 and r.shape[1] >= tile_hier]
     if 0 < len(big_idx) < len(runs):
         small_idx = [i for i, r in enumerate(runs)
                      if r.shape[1] < tile_hier]
@@ -554,9 +715,12 @@ def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs,
         if hier:
             parity_dev, ls = fused_hier_call(tables, dev, wb)
             path = "hier_lsub"
-        else:
+        elif use_w32:
             parity_dev, ls = gf_encode_with_crc_w32(tables, dev, block)
             path = "w32_flat"
+        else:
+            parity_dev, ls = gf_encode_with_crc(tables, dev, block)
+            path = "bytes"
         # per-run device combines of each run's full blocks: one L per
         # shard
         folds = []

@@ -24,7 +24,11 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    GF(2^8) multiply-add per coefficient and column, one crc table step
    per shard byte) over the int8 rate (1,979 TOP/s), whichever is
    larger.  No single PyTorch call
-   computes these functions, so library_ms is null.
+   computes these functions, so library_ms is null.  Nine rows: K1
+   (encode, decode, the device entry), K2's three entries (hier, w32
+   flat, and the byte entry of Pallas #6 at 8+3 x 512 KiB), K3 (one run,
+   two runs) and K4 (Pallas #7's counterpart, 8 x 512 KiB -> 3, its
+   default grid).
 2. Main path at combine="xla".  The port's ECBackend +
    LocalShardBackend over MemStore, plugin `torch`, k=8 m=3 cauchy (the
    ISA-L default profile), stripe unit 4096 B, dispatch-ahead depth 2,
@@ -61,11 +65,27 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    exhaustive (all 55 erasure pairs verified).  Launches are counted
    over the two encode invocations (the row of encode_chunks_device)
    and over the two decode invocations apart.
+6. Byte branch (phase D): a fresh backend whose codec has _use_w32 =
+   False — ceph_tpu's byte-layout write path: 16 x 4 MiB, 16 x 64 KiB
+   and one mixed batch(), every drain one launch of K2's byte entry
+   (path "bytes", counted as a fallback drain), the hier, flat and K3
+   counters 0; then readback, degraded reads with shards 0 and 1 down,
+   parity and HashInfo checks.  GB/s and stage times are printed.
+7. w32_sweep (phase E): ceph_tpu_torch.tools.w32_sweep at full size
+   (4 MiB a chunk), K1 and K4 over tiles of 64 KiB - 4 MiB of each row
+   per block, every configuration exact before it is timed.  Then K1
+   and K4 (G = 1, 2, 4, 8 lanes a strip) at their default grids over
+   rows of 16 KiB - 4 MiB, checked and timed as the kernel rows are.
+8. A/B (phase F): the native CPU library must have built; then
+   ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
+   --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
+   canonical invocation.
 
-Output: the card's name and power limit, the sweep table, the kernels
-JSON line, the main paths' and the benchmark's lines, and as the last
-line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
-(the script drives one card).  Any failure raises and exits non-zero.
+Output: the card's name and power limit, the sweep tables, the kernels
+JSON line, the main paths', the benchmark's, the w32 sweep's and the
+A/B's lines, and as the last line {"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": 1}} (the script drives one card).  Any
+failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -90,7 +110,7 @@ K, M = 8, 3
 STRIPE_UNIT = 4096
 BIG = 4 << 20                   # 4 MiB objects
 SMALL = 64 << 10                # 64 KiB objects
-N_BIG_XLA, N_BIG_ACC, N_BIG_PICK = 32, 64, 16
+N_BIG_XLA, N_BIG_ACC, N_BIG_PICK, N_BIG_BYTES = 32, 64, 16, 16
 N_SMALL, N_RMW = 16, 8
 RMW_LEN = 16 << 10
 SEED = 20261016
@@ -159,32 +179,12 @@ def single_event_ms(fn, flush: torch.Tensor | None = None,
     return statistics.median(times)
 
 
-def graph_event_ms(fn, calls: int = 10, samples: int = 25) -> float:
-    """Median over `samples` CUDA-event pairs, each around one replay of
-    a CUDA graph holding `calls` back-to-back calls of `fn`, per call:
-    the kernel's time without the host's launch overhead."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(samples):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
+def graph_event_ms(fn) -> float:
+    """Median over 25 CUDA-event pairs, each around one replay of a CUDA
+    graph holding 10 back-to-back calls of `fn`, per call: the kernel's
+    time without the host's launch overhead (w32_sweep's timer)."""
+    from ceph_tpu_torch.tools.w32_sweep import graph_ms
+    return graph_ms(fn, calls=10, samples=25)
 
 
 class StageTimes:
@@ -350,6 +350,22 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                                                  data_bench),
                    [(M, bench)], gf_bytes(M, bench), gf_ops(M, bench),
                    flush),
+        kernel_row("gf_encode_with_crc (K2 byte entry, 2 KiB tiles)",
+                   "csrc/gf_encode_crc.cu", "ceph_tpu/ops/bitsliced.py:385",
+                   "gf_encode_with_crc", "bytes_write",
+                   lambda: bs.gf_encode_with_crc(enc, data, bs.FUSED_TILE),
+                   lambda: bs.gf_encode_with_crc_plain(enc, data,
+                                                       bs.FUSED_TILE),
+                   [(M, run), (K + M, run // bs.FUSED_TILE)],
+                   gf_bytes(M, run) + (K + M) * (run // bs.FUSED_TILE) * 4,
+                   gf_ops(M, run) + crc_ops(run), flush),
+        kernel_row("gf_bitmatmul_stream (K4, 8 x 512 KiB -> 3)",
+                   "csrc/gf_bitmatmul_stream.cu",
+                   "ceph_tpu/ops/bitsliced.py:245", "gf_bitmatmul_stream",
+                   "w32_sweep",
+                   lambda: bs.gf_bitmatmul_stream(enc, data),
+                   lambda: bs.gf_bitmatmul_stream_plain(enc, data),
+                   [(M, run)], gf_bytes(M, run), gf_ops(M, run), flush),
     ]
     del flush
     return rows
@@ -439,14 +455,69 @@ class Writer:
                 raise AssertionError(f"read back of {name} differs")
 
 
+def check_parity(codec, sinfo, store, shards, w, name) -> None:
+    """Every shard of one object against the host GF(2^8) encode."""
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.osd import ec_transaction as ect
+    from ceph_tpu_torch.osd import ec_util
+    host = ec_util.encode(sinfo, codec, w.expect[name])
+    ref = gf.gf_matvec(codec.matrix[K:], host[:K])
+    for s in range(K + M):
+        stored = store.read(shards.cids[s], ect.shard_oid(w.oid(name), s))
+        want = host[s] if s < K else ref[s - K]
+        if not np.array_equal(stored, want):
+            raise AssertionError(f"shard {s} of {name} differs from the host "
+                                 "reference encode")
+
+
+def check_crcs(store, shards, w) -> int:
+    """Every valid HashInfo crc against the host crc32c of the stored
+    shard bytes; returns how many objects carried one."""
+    from ceph_tpu_torch.common import crc32c
+    from ceph_tpu_torch.osd import ec_transaction as ect
+    n_crc = 0
+    for name in w.expect:
+        hinfo = shards.get_hinfo(0, w.oid(name))
+        if not hinfo.crc_valid:
+            continue
+        rows = np.stack([store.read(shards.cids[s],
+                                    ect.shard_oid(w.oid(name), s))
+                         for s in range(K + M)])
+        if crc32c.crc32c_rows(rows, [0xFFFFFFFF] * (K + M)) != \
+                list(hinfo.cumulative_shard_hashes):
+            raise AssertionError(f"HashInfo crc of {name} differs from the "
+                                 "host crc32c of its shards")
+        n_crc += 1
+    return n_crc
+
+
+def degraded_reads(be, shards, w, names) -> tuple[int, float]:
+    """Read `names` with shards 0 and 1 failing (K1 decode), then every
+    other object healthy; returns (bytes read degraded, seconds)."""
+    shards.down = {0, 1}
+    t0 = time.perf_counter()
+    nread = 0
+    for name in names:
+        got = be.read(w.oid(name))
+        nread += got.size
+        if not np.array_equal(got, w.expect[name]):
+            raise AssertionError(f"degraded read of {name} differs")
+    t_deg = time.perf_counter() - t0
+    w.check_readback([n for n in w.expect if n not in names])
+    torch.cuda.synchronize()
+    shards.down = set()
+    return nread, t_deg
+
+
+def check_drained(be) -> None:
+    if len(be.extent_cache) or be._projected or be._inflight:
+        raise AssertionError("pipeline state did not drain")
+
+
 def phase_main_path(dev, rng, combine: str, n_big: int):
     """The port's write and degraded-read path, k=8 m=3, at the pinned
     `combine`; returns (per-phase launch counts, throughput dict)."""
-    from ceph_tpu_torch.common import crc32c
-    from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs
-    from ceph_tpu_torch.osd import ec_transaction as ect
-    from ceph_tpu_torch.osd import ec_util
 
     stages = StageTimes()
     codec, sinfo, store, shards, be = make_backend(dev, stages)
@@ -528,53 +599,16 @@ def phase_main_path(dev, rng, combine: str, n_big: int):
                              f"{len(fused)} of {n_fused}")
 
     w.check_readback()
-
-    # parity of one object against the host GF(2^8) reference
-    last = f"big{n_big - 1}"
-    host = ec_util.encode(sinfo, codec, w.expect[last])
-    ref = gf.gf_matvec(codec.matrix[K:], host[:K])
-    for s in range(K + M):
-        stored = store.read(shards.cids[s], ect.shard_oid(w.oid(last), s))
-        want = host[s] if s < K else ref[s - K]
-        if not np.array_equal(stored, want):
-            raise AssertionError(f"shard {s} of {last} differs from the host "
-                                 "reference encode")
-
-    # every valid HashInfo crc against the host crc32c of the bytes
-    n_crc = 0
-    for name in w.expect:
-        hinfo = shards.get_hinfo(0, w.oid(name))
-        if not hinfo.crc_valid:
-            continue
-        rows = np.stack([store.read(shards.cids[s],
-                                    ect.shard_oid(w.oid(name), s))
-                         for s in range(K + M)])
-        if crc32c.crc32c_rows(rows, [0xFFFFFFFF] * (K + M)) != \
-                list(hinfo.cumulative_shard_hashes):
-            raise AssertionError(f"HashInfo crc of {name} differs from the "
-                                 "host crc32c of its shards")
-        n_crc += 1
+    check_parity(codec, sinfo, store, shards, w, f"big{n_big - 1}")
+    n_crc = check_crcs(store, shards, w)
     if n_crc < n_big - N_RMW + 8 + N_SMALL + len(mixed):
         raise AssertionError(f"only {n_crc} objects carry a valid crc")
 
     # -- degraded read path -------------------------------------------
-    shards.down = {0, 1}
     bs.reset_launch_counts()
-    t0 = time.perf_counter()
-    nread = 0
-    for name in big:
-        got = be.read(w.oid(name))
-        nread += got.size
-        if not np.array_equal(got, w.expect[name]):
-            raise AssertionError(f"degraded read of {name} differs")
-    t_deg = time.perf_counter() - t0
-    w.check_readback([n for n in w.expect if n not in big])
-    torch.cuda.synchronize()
+    nread, t_deg = degraded_reads(be, shards, w, big)
     counts[f"{combine}_read"] = bs.launch_counts()
-    shards.down = set()
-
-    if len(be.extent_cache) or be._projected or be._inflight:
-        raise AssertionError("pipeline state did not drain")
+    check_drained(be)
     perf = {"point": point,
             "write_4MiB_objects_GBps": n_big * BIG / t_big / 1e9,
             "write_4MiB_objects_s": t_big, "write_4MiB_objects": n_big,
@@ -588,6 +622,171 @@ def phase_main_path(dev, rng, combine: str, n_big: int):
             "objects": len(w.expect), "crc_checked_objects": n_crc,
             "fused_results_tail_free": len(fused), "paths": paths}
     return counts, perf
+
+
+def phase_bytes_path(dev, rng) -> tuple[dict, dict]:
+    """Phase D: the write path on the byte branch (codec._use_w32 =
+    False): every drain one launch of K2's byte entry at 2 KiB tiles,
+    path "bytes", the operating point never consulted.  16 x 4 MiB and
+    16 x 64 KiB in pipeline windows, one mixed batch(), then readback,
+    degraded reads with shards 0 and 1 down, parity and HashInfo
+    checks.  Returns (launch counts of the writes, throughput dict)."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+
+    stages = StageTimes()
+    codec, sinfo, store, shards, be = make_backend(dev, stages)
+    codec._use_w32 = False
+    w = Writer(be, rng)
+    big = {f"bbig{i}": w.payload(BIG) for i in range(N_BIG_BYTES)}
+    small = {f"bsmall{i}": w.payload(SMALL) for i in range(N_SMALL)}
+    mixed = {f"bmixbig{i}": w.payload(BIG) for i in range(2)}
+    mixed.update({f"bmixsmall{i}": w.payload(SMALL) for i in range(4)})
+    paths = set()
+    real_submit = codec.encode_extents_with_crc_submit
+
+    def submit(runs):
+        handle = real_submit(runs)
+        paths.add(handle["path"])
+        return handle
+    codec.encode_extents_with_crc_submit = submit
+    torch.cuda.synchronize()
+    bs.reset_launch_counts()
+    t0 = time.perf_counter()
+    with be.pipeline():
+        for name, p in big.items():
+            w.submit(name, 0, p)
+    t_big = time.perf_counter() - t0
+    write_stages = dict(stages.t)
+    with be.pipeline():
+        for name, p in small.items():
+            w.submit(name, 0, p)
+    with be.batch():
+        for name, p in mixed.items():
+            w.submit(name, 0, p)
+    torch.cuda.synchronize()
+    counts = bs.launch_counts()
+    if paths != {"bytes"} or codec._fused_point is not None:
+        raise AssertionError(f"byte branch took {paths}, point "
+                             f"{codec._fused_point}")
+    others = {n: c for n, c in counts.items()
+              if n in ("fused_hier_call", "gf_encode_with_crc_w32",
+                       "fused_hier_acc_call") and c}
+    if counts["gf_encode_with_crc"] <= 0 or others:
+        raise AssertionError(f"byte branch launches {counts}")
+    drains = stages.n.get("ec_fused_fallback_drains", 0)
+    if drains <= 0 or stages.n.get("ec_fused_kernel_drains", 0):
+        raise AssertionError(f"byte drains not counted as fallback: "
+                             f"{stages.n}")
+    w.check_readback()
+    check_parity(codec, sinfo, store, shards, w, f"bbig{N_BIG_BYTES - 1}")
+    n_crc = check_crcs(store, shards, w)
+    if n_crc != len(w.expect):
+        raise AssertionError(f"only {n_crc} of {len(w.expect)} objects "
+                             "carry a valid crc")
+    nread, t_deg = degraded_reads(be, shards, w, big)
+    check_drained(be)
+    return counts, {
+        "write_4MiB_objects_GBps": len(big) * BIG / t_big / 1e9,
+        "write_4MiB_objects_s": t_big, "write_4MiB_objects": len(big),
+        "write_stage_s": write_stages,
+        "degraded_read_4MiB_objects_GBps": nread / t_deg / 1e9,
+        "objects": len(w.expect), "crc_checked_objects": n_crc,
+        "fallback_drains": drains, "paths": sorted(paths)}
+
+
+def phase_w32_sweep() -> tuple[dict, list[dict]]:
+    """Phase E: tools/w32_sweep at full size (4 MiB a chunk), K1 and
+    K4 over tiles 64 KiB - 4 MiB; every row exact, none with an error.
+    Returns (launch counts of the sweep, its rows)."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.tools import w32_sweep
+
+    torch.cuda.synchronize()
+    bs.reset_launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rows = w32_sweep.sweep(w32_sweep.parse_args([]))
+    torch.cuda.synchronize()
+    counts = bs.launch_counts()
+    if len(rows) != 2 * len(w32_sweep.TILES) or any(
+            "error" in r or not r["exact"] for r in rows):
+        raise AssertionError(f"w32_sweep rows failed: {rows}")
+    for r in rows:
+        print(f"# w32_sweep stream={r['stream']!s:5} tile={r['tile']:8d} "
+              f"exact={r['exact']} GB/s={r.get('gbps')}", flush=True)
+    return counts, rows
+
+
+def k4_groups_table(dev, rng) -> list[dict]:
+    """K1 and K4 at their default grids over widths of 16 KiB - 4 MiB a
+    row (8 -> 3, the write path's Cauchy code) and K4's group counts
+    G = 1, 2, 4, 8: where the time of the GF(2^8) apply goes.  Each
+    entry checked against K1's plain version, then timed as the kernel
+    rows are (graph replays)."""
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ops import bitsliced as bs
+    enc = bs.tables_tensor(gf.product_tables(gf.cauchy_rs_matrix(K, M)[K:]),
+                           dev)
+    table = []
+    for width in (16 << 10, 128 << 10, 512 << 10, 4 << 20):
+        data = torch.from_numpy(
+            rng.integers(0, 256, (K, width), dtype=np.uint8)).to(dev)
+        want = bs.gf_bitmatmul_plain(enc, data)
+        variants = [("K1", lambda: bs.gf_bitmatmul(enc, data))] + [
+            (f"K4 G={g}", lambda g=g: bs.gf_bitmatmul_stream(enc, data,
+                                                            groups=g))
+            for g in (1, 2, 4, 8)]
+        for name, fn in variants:
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{name} at {width} B differs")
+            us = graph_event_ms(fn) * 1e3
+            table.append({"kernel": name, "row_bytes": width, "us": us,
+                          "GBps": K * width / us / 1e3})
+            print(f"# k4_groups {name:7s} row={width:8d} B  {us:9.3f} us  "
+                  f"{K * width / us / 1e3:8.1f} GB/s", flush=True)
+    return table
+
+
+def phase_ab() -> dict:
+    """Phase F: the CPU plugins with the native library, and
+    ec_benchmark --ab (isa against torch, per call and batch 32), then
+    -p isa and -p jerasure with the reference's canonical invocation."""
+    from ceph_tpu_torch.common import native
+    from ceph_tpu_torch.tools import ec_benchmark
+
+    if not native.available():
+        raise AssertionError("the native CPU library did not build")
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = ec_benchmark.main(argv)
+        if rc != 0:
+            raise AssertionError(f"ec_benchmark {argv} exited {rc}")
+        print(f"# ec_benchmark {' '.join(argv)}", flush=True)
+        return buf.getvalue().strip().splitlines()
+
+    ab = [json.loads(line) for line in run(
+        ["--ab", "-P", f"k={K}", "-P", f"m={M}", "-S", "1048576",
+         "--batch", "32", "--min-time", "1"])]
+    sides = {(r["side"], r["mode"]) for r in ab if "side" in r}
+    ratios = {r["ratio_mode"]: r["torch_over_cpu"] for r in ab
+              if "ratio_mode" in r}
+    if sides != {(s, m) for s in ("isa", "torch")
+                 for m in ("per_call", "batched")} or \
+            set(ratios) != {"per_call", "batched"}:
+        raise AssertionError(f"--ab rows incomplete: {ab}")
+    for r in ab:
+        print(f"# {json.dumps(r)}", flush=True)
+    cpu = {}
+    for plugin in ("isa", "jerasure"):
+        (line,) = run(["-p", plugin, "-P", f"k={K}", "-P", f"m={M}",
+                       "-S", "1048576", "-i", "1000"])
+        sec, kib = line.split("\t")
+        cpu[plugin] = {"line": line,
+                       "GBps": int(kib) * 1024 / float(sec) / 1e9}
+        print(f"{line}\t# {cpu[plugin]['GBps']:.3f} GB/s", flush=True)
+    return {"ab": ab, "cpu_plugins": cpu}
 
 
 def phase_sweep(dev, cache_file) -> dict:
@@ -782,8 +981,12 @@ def main() -> int:
                                                 N_BIG_ACC)
         counts.update(counts_k)
         perf_pick = phase_write_ab(dev, rng, tmp, sweep["best"])
+        counts["bytes_write"], perf_bytes = phase_bytes_path(dev, rng)
         counts["bench_encode"], counts["bench_decode"], bench = \
             phase_benchmark()
+        counts["w32_sweep"], w32_rows = phase_w32_sweep()
+        groups = k4_groups_table(dev, rng)
+        ab = phase_ab()
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -798,8 +1001,12 @@ def main() -> int:
     print(json.dumps({"main_path_xla": perf_xla}), flush=True)
     print(json.dumps({"main_path_kernel": perf_kernel,
                       "write_ab": perf_pick}), flush=True)
+    print(json.dumps({"main_path_bytes": perf_bytes}), flush=True)
     print(json.dumps({"ec_benchmark": bench, "launch_counts": counts}),
           flush=True)
+    print(json.dumps({"w32_sweep": w32_rows, "k4_groups": groups}),
+          flush=True)
+    print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}), flush=True)

@@ -74,6 +74,86 @@ def test_k2_entries_match_plain(cuda_device, k, m, n, wb):
         assert torch.equal(p1, p2) and torch.equal(l1, l2)
 
 
+@pytest.mark.parametrize("k,r,n,tile,groups", [
+    (8, 3, 1 << 19, None, None),           # the sweep's default G = 4
+    (8, 3, 1 << 19, 65536, None),
+    (8, 3, 1 << 20, 1 << 20, None),        # one block
+    (8, 2, 4096 + 16, None, None),
+    (4, 2, 1001, None, None),              # ragged, G = 2
+    (6, 3, 333, 256, None),                # k the TPU kernel refused
+    (10, 4, 5000, None, None),             # G = 4 does not divide k
+    (5, 11, 333, None, 8),                 # two row groups of 8 and 3
+    (32, 1, 4096, None, 32),
+    (3, 3, 100, 16, None),                 # G = 1
+    (8, 3, 0, None, None)])
+def test_k4_matches_plain_and_k1(cuda_device, k, r, n, tile, groups):
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(k * 7 + r + n)
+    mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
+    chunks = rng.integers(0, 256, (k, n), dtype=np.uint8)
+    tab = _tables(mat, cuda_device)
+    dev = torch.from_numpy(chunks).to(cuda_device)
+    before = bs.gf_bitmatmul_stream.launches
+    got = bs.gf_bitmatmul_stream(tab, dev, tile=tile, groups=groups)
+    k1 = bs.gf_bitmatmul(tab, dev, tile=tile)
+    torch.cuda.synchronize()
+    assert bs.gf_bitmatmul_stream.launches == before + (n > 0)
+    want = bs.gf_bitmatmul_stream_plain(tab, dev, groups).cpu().numpy()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    np.testing.assert_array_equal(k1.cpu().numpy(), want)
+    np.testing.assert_array_equal(want, gf.gf_matvec(mat, chunks))
+
+
+def test_k2_byte_entry_matches_plain(cuda_device):
+    """K2's byte entry (Pallas #6's contract) against its plain version,
+    which takes the byte crc matrix, and against the w32 entry."""
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(66)
+    tab = _tables(gf.cauchy_rs_matrix(8, 3)[8:], cuda_device)
+    for n in (1 << 19, 2048, 6144):
+        dev = torch.from_numpy(rng.integers(0, 256, (8, n), dtype=np.uint8)) \
+            .to(cuda_device)
+        before = bs.gf_encode_with_crc.launches
+        p1, l1 = bs.gf_encode_with_crc(tab, dev)
+        p2, l2 = bs.gf_encode_with_crc_plain(tab, dev)
+        p3, l3 = bs.gf_encode_with_crc_w32(tab, dev)
+        torch.cuda.synchronize()
+        assert bs.gf_encode_with_crc.launches == before + 1
+        assert torch.equal(p1, p2) and torch.equal(l1, l2)
+        assert torch.equal(p1, p3) and torch.equal(l1, l3)
+        assert l1.shape == (11, n // 2048)
+
+
+def test_bytes_submit_does_not_synchronise(cuda_device):
+    """The byte branch of the extents path (use_w32=False) queues K2's
+    byte entry and the per-run folds without waiting for the card, and
+    agrees with the CPU codec on the same branch."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    reg = ErasureCodePluginRegistry.instance()
+    gpu = reg.factory("torch", {"k": "8", "m": "3",
+                                "device": str(cuda_device)})
+    cpu = reg.factory("torch", {"k": "8", "m": "3", "device": "cpu"})
+    gpu._use_w32 = cpu._use_w32 = False
+    rng = np.random.default_rng(16)
+    runs = [rng.integers(0, 256, (8, w), dtype=np.uint8)
+            for w in (1 << 19, 8192, 3000)]
+    gpu.encode_extents_with_crc_finalize(         # warm the caches
+        gpu.encode_extents_with_crc_submit(runs))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = gpu.encode_extents_with_crc_submit(runs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert h["path"] == "bytes" and gpu._fused_point is None
+    for a, b in zip(gpu.encode_extents_with_crc_finalize(h),
+                    cpu.encode_extents_with_crc(runs)):
+        for x, y in zip(a[:3], b[:3]):
+            np.testing.assert_array_equal(x, y)
+        assert a[3] == b[3]
+
+
 @pytest.mark.parametrize("combine", ["xla", "kernel"])
 def test_submit_does_not_synchronise(cuda_device, combine):
     """The dispatch half of the extents path (K2 + folds, or K3 with its

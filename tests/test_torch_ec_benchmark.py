@@ -1,8 +1,10 @@
 """The plugin's device-resident entries (the contract of Pallas kernel
 #5, served by K1) against ErasureCodeJax's on the CPU, and the port's
-ec_benchmark CLI (-P device=cpu): output contract, --batch, exhaustive
-decode, and its errors."""
+ec_benchmark CLI (-p torch -P device=cpu, and its CPU plugins): output
+contract, --batch, exhaustive decode, --ab, the default plugin, and its
+errors."""
 
+import json
 import re
 
 import jax.numpy as jnp
@@ -122,8 +124,9 @@ def _run(capsys, *argv):
 ])
 def test_cli_encode_output_contract(capsys, extra, kib):
     iters = "8" if extra else "5"
-    rc, out, err = _run(capsys, "-P", "k=8", "-P", "m=3", "-P", "device=cpu",
-                        "-S", "65536", "-i", iters, "--gbps", *extra)
+    rc, out, err = _run(capsys, "-p", "torch", "-P", "k=8", "-P", "m=3",
+                        "-P", "device=cpu", "-S", "65536", "-i", iters,
+                        "--gbps", *extra)
     assert rc == 0
     (line,) = out.strip().splitlines()
     assert int(LINE.match(line).group(1)) == kib
@@ -149,32 +152,92 @@ def test_cli_decode_exhaustive_verifies_every_pair(capsys, monkeypatch):
     monkeypatch.setattr(ec_torch.ErasureCodeTorch, "decode_chunks", spy)
     monkeypatch.setattr(ec_torch.ErasureCodeTorch, "decode_chunks_device",
                         spy_dev)
-    rc, out, _ = _run(capsys, "-P", "k=4", "-P", "m=2", "-P", "device=cpu",
-                      "-S", "8192", "-i", "3", "-w", "decode", "-e", "2",
-                      "-E", "exhaustive")
+    rc, out, _ = _run(capsys, "-p", "torch", "-P", "k=4", "-P", "m=2",
+                      "-P", "device=cpu", "-S", "8192", "-i", "3",
+                      "-w", "decode", "-e", "2", "-E", "exhaustive")
     assert rc == 0
     assert int(LINE.match(out.strip()).group(1)) == 3 * 8
     assert len(set(seen)) == 15            # C(6, 2)
     assert len(set(seen_dev)) == 15 and len(seen_dev) == 15 + 3
 
 
-def test_cli_decode_named_erasures_and_errors(capsys):
-    rc, out, _ = _run(capsys, "-P", "k=4", "-P", "m=2", "-P", "device=cpu",
-                      "-S", "4096", "-i", "2", "-w", "decode", "-N", "1",
-                      "-N", "4")
+def test_cli_decode_named_erasures_and_errors(capsys, monkeypatch):
+    rc, out, _ = _run(capsys, "-p", "torch", "-P", "k=4", "-P", "m=2",
+                      "-P", "device=cpu", "-S", "4096", "-i", "2",
+                      "-w", "decode", "-N", "1", "-N", "4")
     assert rc == 0 and LINE.match(out.strip())
-    rc, _, err = _run(capsys, "-P", "k=4", "-P", "m=2", "-P", "device=cpu",
-                      "-w", "decode", "-e", "3")
+    rc, _, err = _run(capsys, "-p", "torch", "-P", "k=4", "-P", "m=2",
+                      "-P", "device=cpu", "-w", "decode", "-e", "3")
     assert rc == 1 and "cannot decode" in err
     rc, _, err = _run(capsys, "-p", "nosuch", "-P", "device=cpu")
     assert rc == 1 and "ec_benchmark:" in err
-    rc, _, err = _run(capsys, "--ab")
-    assert rc == 2 and "CPU plugins" in err
+    # --ab's torch side runs on the card unless -P device=cpu
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc, out, err = _run(capsys, "--ab", "-P", "k=4", "-P", "m=2")
+    assert rc == 1 and not out and "no CUDA device" in err
     with pytest.raises(SystemExit):
         ec_benchmark.main(["-P", "k8"])
 
 
 def test_cli_needs_a_card_by_default(capsys, monkeypatch):
+    """-p torch without -P device runs on the card, so without one it
+    fails with a clean error; the CPU plugins need none."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    rc, out, err = _run(capsys, "-P", "k=4", "-P", "m=2")
+    rc, out, err = _run(capsys, "-p", "torch", "-P", "k=4", "-P", "m=2")
     assert rc == 1 and not out and "no CUDA device" in err
+
+
+def test_cli_default_plugin_is_jerasure(capsys, monkeypatch):
+    """-p left unset runs the reference's default, jerasure, through
+    the host loop of N encode_chunks calls."""
+    seen = []
+    real = ec_benchmark.make_codec
+
+    def spy(plugin, parameters):
+        seen.append(plugin)
+        return real(plugin, parameters)
+    monkeypatch.setattr(ec_benchmark, "make_codec", spy)
+    rc, out, _ = _run(capsys, "-P", "k=4", "-P", "m=2", "-S", "65536",
+                      "-i", "7")
+    assert rc == 0 and seen == ["jerasure"]
+    assert int(LINE.match(out.strip()).group(1)) == 7 * 64
+
+
+@pytest.mark.parametrize("plugin", ["isa", "jerasure", "example"])
+def test_cli_cpu_plugins_encode_and_decode(capsys, plugin):
+    profile = ["-P", "k=4", "-P", "m=2"] if plugin != "example" else []
+    rc, out, _ = _run(capsys, "-p", plugin, *profile, "-S", "32768",
+                      "-i", "3")
+    assert rc == 0 and int(LINE.match(out.strip()).group(1)) == 3 * 32
+    rc, out, _ = _run(capsys, "-p", plugin, *profile, "-S", "32768",
+                      "-i", "3", "-w", "decode", "-e", "1",
+                      "-E", "exhaustive")
+    assert rc == 0 and int(LINE.match(out.strip()).group(1)) == 3 * 32
+
+
+def test_cli_ab_rows(capsys):
+    """--ab on the CPU (-P device=cpu for the torch side): isa against
+    torch, per call and batched, one JSON row each, then the two
+    torch_over_cpu ratio rows (ceph_tpu's key is jax_over_cpu)."""
+    rc, out, _ = _run(capsys, "--ab", "-P", "k=4", "-P", "m=2",
+                      "-P", "device=cpu", "-S", "16384", "--batch", "4",
+                      "--min-time", "0.01")
+    assert rc == 0
+    rows = [json.loads(line) for line in out.strip().splitlines()]
+    sides = [r for r in rows if "side" in r]
+    assert [(r["side"], r["mode"]) for r in sides] == [
+        ("isa", "per_call"), ("torch", "per_call"),
+        ("isa", "batched"), ("torch", "batched")]
+    for r in sides:
+        assert set(r) == {"side", "mode", "bytes_per_iter", "iters", "gbps"}
+        assert r["iters"] >= 5 and r["gbps"] >= 0     # rounded to 1 MB/s
+        assert r["bytes_per_iter"] == 16384 * (4 if r["mode"] == "batched"
+                                               else 1)
+    ratios = rows[4:]
+    assert [r["ratio_mode"] for r in ratios] == ["per_call", "batched"]
+    by = {(r["side"], r["mode"]): r["gbps"] for r in sides}
+    for r in ratios:
+        assert set(r) == {"ratio_mode", "torch_over_cpu"}
+        assert r["torch_over_cpu"] == pytest.approx(
+            by[("torch", r["ratio_mode"])] / by[("isa", r["ratio_mode"])],
+            rel=0.01, abs=0.001)

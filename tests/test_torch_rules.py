@@ -60,9 +60,11 @@ def _operands():
     lambda t, c: bs.gf_encode_with_crc_w32(t, c),
     lambda t, c: bs.fused_hier_acc_call(
         t, c, torch.tensor([2], dtype=torch.int64, device=c.device)
-        if isinstance(c, torch.Tensor) else torch.tensor([2]))],
+        if isinstance(c, torch.Tensor) else torch.tensor([2])),
+    lambda t, c: bs.gf_encode_with_crc(t, c),
+    lambda t, c: bs.gf_bitmatmul_stream(t, c)],
     ids=["gf_bitmatmul", "fused_hier_call", "gf_encode_with_crc_w32",
-         "fused_hier_acc_call"])
+         "fused_hier_acc_call", "gf_encode_with_crc", "gf_bitmatmul_stream"])
 def test_wrappers_refuse_bad_operands(entry):
     tables, chunks = _operands()
     # operands on two devices ("meta" stands in for the card here)
@@ -87,6 +89,9 @@ def test_fused_entries_refuse_partial_blocks():
                                                       dtype=torch.uint8))
     with pytest.raises(ValueError, match="multiple of the block"):
         bs.fused_hier_call(tables, torch.zeros((4, 1024), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="multiple of the block"):
+        bs.gf_encode_with_crc(tables, torch.zeros((4, 3000),
+                                                  dtype=torch.uint8))
 
 
 def test_cpu_wrappers_do_not_count_launches():
@@ -97,9 +102,13 @@ def test_cpu_wrappers_do_not_count_launches():
     bs.gf_encode_with_crc_w32(tables, chunks)
     bs.fused_hier_acc_call(tables, chunks,
                            torch.tensor([2], dtype=torch.int64))
+    bs.gf_encode_with_crc(tables, chunks)
+    bs.gf_bitmatmul_stream(tables, chunks)
     assert bs.launch_counts() == {"gf_bitmatmul": 0, "fused_hier_call": 0,
                                   "gf_encode_with_crc_w32": 0,
-                                  "fused_hier_acc_call": 0}
+                                  "fused_hier_acc_call": 0,
+                                  "gf_encode_with_crc": 0,
+                                  "gf_bitmatmul_stream": 0}
 
 
 def test_extents_refuse_runs_of_another_k():
