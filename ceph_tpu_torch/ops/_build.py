@@ -111,7 +111,8 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ctt_gf_bitmatmul.argtypes = [vp, vp, vp, i32, i32, i64, i64, vp]
+        lib.ctt_gf_bitmatmul.argtypes = [vp, vp, vp, i32, i32, i64, i64,
+                                         i32, i64, i32, vp]
         lib.ctt_gf_bitmatmul.restype = i32
         lib.ctt_gf_bitmatmul_stream.argtypes = [vp, vp, vp, i32, i32, i64,
                                                 i64, i32, vp]

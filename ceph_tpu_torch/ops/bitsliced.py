@@ -8,7 +8,13 @@ Four hand-written CUDA kernels (csrc/) carry the EC data plane:
   (`_make_gf_kernel_w32`, ceph_tpu/ops/bitsliced.py:227) and its byte
   twin #5 (`_gf_kernel` :122, the device-resident entries of the
   plugin).  Serves every decode and the plain encode of overwrite
-  extents.
+  extents.  On the H100 the shared-memory lookups' bank wavefronts bound
+  it at wide rows and launch plus table staging at narrow ones; so one
+  32-bit lookup of a packed table serves four output rows of an input
+  byte, and the grid follows the width: `k1_launch` (4 or 16 bytes of
+  each row a thread, at most one resident wave of blocks) and `k1_smem`
+  (the packed tables' shared-memory layout) are the pure functions the
+  wrapper passes in.
 * K2 `gf_encode_crc` (csrc/gf_encode_crc.cu) — parity plus the crc32c
   linear part L of every block of all k+m shard rows, one launch.
   Three entries with the contracts of Pallas kernels #1, #2 and #6:
@@ -155,27 +161,92 @@ def _check_tables_smem(name: str, r: int, k: int) -> None:
                          "shared memory of one block")
 
 
+K1_THREADS = 256             # threads of a K1 block
+# 16 bytes a thread from this many bytes of each row an SM (3 KiB, 3/4
+# of a block of 16-byte threads): on the H100 16 bytes lose at 256 KiB a
+# row (2 KiB an SM) and win at 512 KiB (chip_smoke.py's k1_thread_bytes
+# table, PERF.md)
+K1_WIDE_ROW_BYTES_PER_SM = 3 << 10
+# resident K1 blocks an SM by registers, by bytes a thread: the launch
+# bounds of csrc/gf_bitmatmul.cu guarantee them
+K1_BLOCKS_PER_SM = {4: 4, 16: 2}
+SM_SMEM = 233472             # shared memory of one SM (228 KiB)
+BLOCK_SMEM_RESERVED = 1024   # shared memory the card keeps for each block
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_smem(r: int, k: int) -> tuple[int, int]:
+    """K1's shared-memory layout for r output and k source rows: (groups
+    of four rows whose packed tables one pass stages, bytes).  A group's
+    packed table takes k KiB: all ceil(r/4) groups at once where they fit
+    in one block, else one group a pass, else (k > 227) 0 — the loop
+    over the r*k*256 byte tables.  Raises ValueError where the byte
+    tables alone would not fit: r*k*256 > SMEM_LIMIT."""
+    _check_tables_smem("gf_bitmatmul", r, k)
+    groups = -(-r // 4)
+    if groups * k * 1024 <= SMEM_LIMIT:
+        return groups, groups * k * 1024
+    if k * 1024 <= SMEM_LIMIT:
+        return 1, k * 1024
+    return 0, r * k * 256
+
+
+@functools.lru_cache(maxsize=1024)
+def k1_launch(n: int, k: int, r: int, sm_count: int, tile: int | None = None,
+              thread_bytes: int | None = None) -> tuple[int, int]:
+    """K1's launch for a width of n bytes a row: (bytes of every row a
+    thread takes, blocks of K1_THREADS).  A thread takes 16 bytes where
+    the row gives K1_WIDE_ROW_BYTES_PER_SM bytes an SM and is 16-byte
+    aligned (n % 16 == 0), else 4; `thread_bytes` forces the choice.
+    With a `tile` (bytes of each row per block) the grid is
+    ceil(n / tile) blocks; without, enough blocks for every thread-width
+    of the row, at most one wave (sm_count times the blocks an SM holds
+    by registers and shared memory), the blocks striding over the rest."""
+    if thread_bytes is None:
+        wide = n % 16 == 0 and n >= K1_WIDE_ROW_BYTES_PER_SM * sm_count
+        thread_bytes = 16 if wide else 4
+    if thread_bytes not in (4, 16):
+        raise ValueError(f"thread_bytes must be 4 or 16, got {thread_bytes}")
+    if tile:
+        return thread_bytes, max(1, -(-n // tile))
+    smem = k1_smem(r, k)[1] + BLOCK_SMEM_RESERVED
+    per_sm = min(K1_BLOCKS_PER_SM[thread_bytes], SM_SMEM // smem)
+    blocks = -(-n // (thread_bytes * K1_THREADS))
+    return thread_bytes, max(1, min(blocks, per_sm * sm_count))
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def gf_bitmatmul(tables: torch.Tensor, chunks: torch.Tensor,
-                 tile: int | None = None) -> torch.Tensor:
+                 tile: int | None = None,
+                 thread_bytes: int | None = None) -> torch.Tensor:
     """K1: (r, k, 256) product tables x (k, N) uint8 chunks -> (r, N)
-    uint8.  CUDA tensors launch csrc/gf_bitmatmul.cu; CPU tensors run
-    gf_bitmatmul_plain.  `tile` (bytes of each row per thread block,
-    a multiple of 16) sets a grid of ceil(N / tile) blocks; None keeps
-    the kernel's grid-stride launch (tools/w32_sweep sweeps it)."""
+    uint8.  CUDA tensors launch csrc/gf_bitmatmul.cu with k1_launch's
+    grid; CPU tensors run gf_bitmatmul_plain.  `tile` (bytes of each row
+    per thread block, a multiple of 16) sets a grid of ceil(N / tile)
+    blocks (tools/w32_sweep sweeps it); `thread_bytes` (4 or 16) forces
+    the bytes of each row a thread takes, which k1_launch otherwise
+    picks from the width."""
     r, k, n = _check_operands(tables, chunks)
     tile_b = _check_tile(tile, n)
+    if thread_bytes not in (None, 4, 16):
+        raise ValueError(f"thread_bytes must be 4 or 16, got {thread_bytes}")
     dev = chunks.device
     if dev.type == "cpu":
         return gf_bitmatmul_plain(tables, chunks)
-    _check_tables_smem("gf_bitmatmul", r, k)
+    stage_groups, _ = k1_smem(r, k)
     out = torch.empty((r, n), dtype=torch.uint8, device=dev)
     if n == 0:
         return out
+    tb, blocks = k1_launch(n, k, r, _sm_count(dev), tile_b, thread_bytes)
     from . import _build
     lib = _build.load()
     rc = lib.ctt_gf_bitmatmul(tables.data_ptr(), chunks.data_ptr(),
-                              out.data_ptr(), r, k, n, tile_b,
-                              _stream_handle(dev))
+                              out.data_ptr(), r, k, n, tile_b, tb, blocks,
+                              stage_groups, _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_bitmatmul launch failed: CUDA error {rc}")
     gf_bitmatmul.launches += 1
@@ -199,7 +270,7 @@ def stream_groups(k: int) -> int:
     reduction as lookups on its row) and the G lanes of a column strip
     lie in one warp.  k=8 -> 4, k=4 and k=6 -> 2, k < 4 -> 1 (K1's work
     split).  The rule depends on k alone; on the H100 the best G also
-    depends on the width (chip_smoke.py's k4_groups table, PERF.md)."""
+    depends on the width (chip_smoke.py's k1_thread_bytes table, PERF.md)."""
     g = 1
     while 2 * g <= min(MAX_STREAM_GROUPS, k // 2):
         g *= 2

@@ -73,9 +73,11 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    parity and HashInfo checks.  GB/s and stage times are printed.
 7. w32_sweep (phase E): ceph_tpu_torch.tools.w32_sweep at full size
    (4 MiB a chunk), K1 and K4 over tiles of 64 KiB - 4 MiB of each row
-   per block, every configuration exact before it is timed.  Then K1
-   and K4 (G = 1, 2, 4, 8 lanes a strip) at their default grids over
-   rows of 16 KiB - 4 MiB, checked and timed as the kernel rows are.
+   per block, every configuration exact before it is timed.  Then K1 at
+   4 and 16 bytes of each row a thread and at k1_launch's pick (printed
+   for each width), and the unchanged K4 (G = 1, 2, 4, 8 lanes a strip)
+   as the same run's yardstick, at their default grids over rows of
+   16 KiB - 4 MiB, checked and timed as the kernel rows are.
 8. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
@@ -717,32 +719,45 @@ def phase_w32_sweep() -> tuple[dict, list[dict]]:
     return counts, rows
 
 
-def k4_groups_table(dev, rng) -> list[dict]:
-    """K1 and K4 at their default grids over widths of 16 KiB - 4 MiB a
-    row (8 -> 3, the write path's Cauchy code) and K4's group counts
-    G = 1, 2, 4, 8: where the time of the GF(2^8) apply goes.  Each
-    entry checked against K1's plain version, then timed as the kernel
-    rows are (graph replays)."""
+def k1_thread_bytes_table(dev, rng) -> list[dict]:
+    """K1 at 4 and 16 bytes of each row a thread and at k1_launch's pick,
+    and the unchanged K4 at G = 1, 2, 4, 8 lanes a strip as the yardstick
+    of the same run, over widths of 16 KiB - 4 MiB a row (8 -> 3, the
+    write path's Cauchy code; 256 and 512 KiB sit either side of
+    k1_launch's threshold), each at its default grid.  Each entry
+    checked against K1's plain version, then timed as the kernel rows
+    are (graph replays)."""
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs
     enc = bs.tables_tensor(gf.product_tables(gf.cauchy_rs_matrix(K, M)[K:]),
                            dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     table = []
-    for width in (16 << 10, 128 << 10, 512 << 10, 4 << 20):
+    for width in (16 << 10, 128 << 10, 256 << 10, 512 << 10, 4 << 20):
         data = torch.from_numpy(
             rng.integers(0, 256, (K, width), dtype=np.uint8)).to(dev)
         want = bs.gf_bitmatmul_plain(enc, data)
-        variants = [("K1", lambda: bs.gf_bitmatmul(enc, data))] + [
-            (f"K4 G={g}", lambda g=g: bs.gf_bitmatmul_stream(enc, data,
-                                                            groups=g))
-            for g in (1, 2, 4, 8)]
-        for name, fn in variants:
+        pick = bs.k1_launch(width, K, M, sms)
+        print(f"# k1_launch row={width:8d} B  picks {pick[0]} bytes a "
+              f"thread, {pick[1]} blocks", flush=True)
+        variants = [(f"K1 {tb} B", tb, lambda tb=tb: bs.gf_bitmatmul(
+            enc, data, thread_bytes=tb)) for tb in (4, 16)]
+        variants.append(("K1 pick", pick[0],
+                         lambda: bs.gf_bitmatmul(enc, data)))
+        variants += [(f"K4 G={g}", None, lambda g=g: bs.gf_bitmatmul_stream(
+            enc, data, groups=g)) for g in (1, 2, 4, 8)]
+        for name, tb, fn in variants:
             if not torch.equal(fn(), want):
                 raise AssertionError(f"{name} at {width} B differs")
             us = graph_event_ms(fn) * 1e3
-            table.append({"kernel": name, "row_bytes": width, "us": us,
-                          "GBps": K * width / us / 1e3})
-            print(f"# k4_groups {name:7s} row={width:8d} B  {us:9.3f} us  "
+            row = {"kernel": name, "row_bytes": width, "us": us,
+                   "GBps": K * width / us / 1e3}
+            if tb is not None:
+                row["thread_bytes"] = tb
+                row["blocks"] = bs.k1_launch(width, K, M, sms,
+                                             thread_bytes=tb)[1]
+            table.append(row)
+            print(f"# k1_table {name:8s} row={width:8d} B  {us:9.3f} us  "
                   f"{K * width / us / 1e3:8.1f} GB/s", flush=True)
     return table
 
@@ -985,7 +1000,7 @@ def main() -> int:
         counts["bench_encode"], counts["bench_decode"], bench = \
             phase_benchmark()
         counts["w32_sweep"], w32_rows = phase_w32_sweep()
-        groups = k4_groups_table(dev, rng)
+        k1_table = k1_thread_bytes_table(dev, rng)
         ab = phase_ab()
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
@@ -1004,7 +1019,7 @@ def main() -> int:
     print(json.dumps({"main_path_bytes": perf_bytes}), flush=True)
     print(json.dumps({"ec_benchmark": bench, "launch_counts": counts}),
           flush=True)
-    print(json.dumps({"w32_sweep": w32_rows, "k4_groups": groups}),
+    print(json.dumps({"w32_sweep": w32_rows, "k1_thread_bytes": k1_table}),
           flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -38,21 +38,72 @@ def _tables(mat, dev):
     return bs.tables_tensor(gf.product_tables(mat), dev)
 
 
-@pytest.mark.parametrize("k,r,n", [(8, 3, 1 << 19), (8, 2, 4096 + 16),
-                                   (4, 2, 1001), (5, 11, 333), (8, 3, 0)])
-def test_k1_kernel_matches_plain(cuda_device, k, r, n):
+def _check_k1(device, k, r, n, tile=None, thread_bytes=None, seed=0):
+    """K1 on the card against its plain version and the host GF(2^8)
+    apply, one launch counted (none for N = 0)."""
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs
-    rng = np.random.default_rng(k * 1000 + r + n)
+    rng = np.random.default_rng(seed + k * 1000 + r + n)
     mat = rng.integers(0, 256, (r, k), dtype=np.uint8)
     chunks = rng.integers(0, 256, (k, n), dtype=np.uint8)
-    tab = _tables(mat, cuda_device)
-    dev = torch.from_numpy(chunks).to(cuda_device)
-    got = bs.gf_bitmatmul(tab, dev)
+    tab = _tables(mat, device)
+    dev = torch.from_numpy(chunks).to(device)
+    before = bs.gf_bitmatmul.launches
+    got = bs.gf_bitmatmul(tab, dev, tile=tile, thread_bytes=thread_bytes)
     torch.cuda.synchronize()
+    assert bs.gf_bitmatmul.launches == before + (n > 0)
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   bs.gf_bitmatmul_plain(tab, dev).cpu().numpy())
     np.testing.assert_array_equal(got.cpu().numpy(), gf.gf_matvec(mat, chunks))
+
+
+@pytest.mark.parametrize("thread_bytes", [None, 4, 16])
+@pytest.mark.parametrize("k,r,n,tile", [
+    (8, 3, 1 << 19, None), (8, 2, 4096 + 16, None),
+    (4, 2, 1001, None),                    # N % 4 != 0
+    (8, 3, 4096 + 4, None),                # N % 16 != 0, N % 4 == 0
+    (5, 11, 333, None), (8, 3, 0, None),
+    (8, 3, 1 << 16, 4096), (6, 2, 5000, 256),  # a given tile
+    (8, 3, 1 << 22, None)])                # the --batch 32 width
+def test_k1_kernel_matches_plain(cuda_device, k, r, n, tile, thread_bytes):
+    _check_k1(cuda_device, k, r, n, tile, thread_bytes)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8, 11])
+@pytest.mark.parametrize("thread_bytes", [4, 16])
+def test_k1_packed_groups(cuda_device, r, thread_bytes):
+    """Partial and multiple groups of four rows in one pass."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    assert bs.k1_smem(r, 8) == (-(-r // 4), -(-r // 4) * 8 * 1024)
+    _check_k1(cuda_device, 8, r, 5000 + 4 * r, thread_bytes=thread_bytes)
+
+
+@pytest.mark.parametrize("thread_bytes", [4, 16])
+@pytest.mark.parametrize("k,r,stage_groups", [
+    (100, 9, 1),                           # passes of four rows
+    (300, 3, 0),                           # k > 227: the byte-table branch
+    (908, 1, 0)])                          # at the shared-memory limit
+def test_k1_large_k_layouts(cuda_device, k, r, stage_groups, thread_bytes):
+    from ceph_tpu_torch.ops import bitsliced as bs
+    assert bs.k1_smem(r, k)[0] == stage_groups
+    _check_k1(cuda_device, k, r, 3000 + 4, thread_bytes=thread_bytes)
+
+
+def test_k1_threshold_sides(cuda_device):
+    """Both bytes a thread on either side of k1_launch's threshold; past
+    the shared-memory limit (r*k*256 bytes) the wrapper raises."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    wide = bs.K1_WIDE_ROW_BYTES_PER_SM * sms
+    assert bs.k1_launch(wide - 16, 8, 3, sms)[0] == 4
+    assert bs.k1_launch(wide, 8, 3, sms)[0] == 16
+    for n in (wide - 16, wide):
+        for tb in (4, 16):
+            _check_k1(cuda_device, 8, 3, n, thread_bytes=tb, seed=tb)
+    tab = torch.zeros((1, 909, 256), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        bs.gf_bitmatmul(tab, torch.zeros((909, 64), dtype=torch.uint8,
+                                         device=cuda_device))
 
 
 @pytest.mark.parametrize("k,m,n,wb", [(8, 3, 1 << 19, 512), (4, 2, 8192, 128),
