@@ -111,18 +111,6 @@ __device__ inline void store_words(uint8_t* p, int64_t rem,
   }
 }
 
-// In place: byte t of a[b] becomes byte b of a[t].
-__device__ inline void transpose4(uint32_t (&a)[4]) {
-  const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140);
-  const uint32_t t1 = __byte_perm(a[0], a[1], 0x7362);
-  const uint32_t t2 = __byte_perm(a[2], a[3], 0x5140);
-  const uint32_t t3 = __byte_perm(a[2], a[3], 0x7362);
-  a[0] = __byte_perm(t0, t2, 0x5410);
-  a[1] = __byte_perm(t0, t2, 0x7632);
-  a[2] = __byte_perm(t1, t3, 0x5410);
-  a[3] = __byte_perm(t1, t3, 0x7632);
-}
-
 // P of groups g0 .. g0+ng-1 into s_p (k*256 words a group) from the byte
 // tables in device memory.  One work item is 4 consecutive entries x of
 // one (group, j): a 4-byte load from each of the group's rows, one
@@ -149,7 +137,7 @@ __device__ inline void build_packed(uint32_t* s_p, const uint8_t* tables,
     for (int h = 0; h < 2; ++h) {
       const int it = it0 + h * blockDim.x;
       if (it < items) {
-        transpose4(u[h]);
+        ctt::transpose4(u[h]);
         reinterpret_cast<uint4*>(s_p)[it] =
             make_uint4(u[h][0], u[h][1], u[h][2], u[h][3]);
       }
@@ -190,7 +178,7 @@ __device__ inline void apply_group(const uint32_t* P, const uint8_t* in,
     }
   }
 #pragma unroll
-  for (int w = 0; w < W; ++w) transpose4(acc[w]);
+  for (int w = 0; w < W; ++w) ctt::transpose4(acc[w]);
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
     if (t < nrows) {

@@ -6,9 +6,11 @@
 // table of coefficient (i, j) lives at tab[(i*k + j)*256], so one
 // lookup multiplies one byte.  Output rows are processed in groups of
 // at most kMaxRows so every accumulator index is a compile-time
-// constant and stays in registers.
+// constant and stays in registers.  K1 and K3 take packed tables
+// instead: one 32-bit lookup for four output rows, then one 4x4 byte
+// transpose a word (transpose4).
 //
-// The fused encode+crc kernels (K2, K3) share one per-block body:
+// K2's per-block body:
 // stage a B-byte column of the k data rows in shared memory, compute
 // the m parity rows into shared memory (and device memory), then take
 // the crc32c linear part L = crc(block, 0) of every shard row, one
@@ -16,9 +18,8 @@
 // piece from state 0, and the warp folds the 32 partials pairwise with
 // L(P1 || P2) = A_|P2| . L(P1) ^ L(P2), the identity the JAX package's
 // crc matrices rest on (ceph_tpu/ops/crc32c_linear.py:5-16).  The
-// operators A_{(B/32) * 2^j} come from the host as 32 uint32 columns
-// each: levels 0-4 serve the warp fold, K3 uses the higher ones to
-// advance a block's L over the blocks after it in its run.
+// operators A_{(B/32) * 2^j}, j = 0-4, come from the host as 32 uint32
+// columns each.  (K3 has its own body, gf_encode_crc_acc.cu.)
 //
 // Shared-memory layout of a staged row: each lane's piece is followed
 // by one pad word, so a row takes B + 128 bytes.  Without it the 32
@@ -121,22 +122,24 @@ __device__ inline void gf_mac_word(uint32_t (&acc)[kMaxRows],
   }
 }
 
+// In place: byte t of a[b] becomes byte b of a[t].
+__device__ inline void transpose4(uint32_t (&a)[4]) {
+  const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140);
+  const uint32_t t1 = __byte_perm(a[0], a[1], 0x7362);
+  const uint32_t t2 = __byte_perm(a[2], a[3], 0x5140);
+  const uint32_t t3 = __byte_perm(a[2], a[3], 0x7362);
+  a[0] = __byte_perm(t0, t2, 0x5410);
+  a[1] = __byte_perm(t0, t2, 0x7632);
+  a[2] = __byte_perm(t1, t3, 0x5410);
+  a[3] = __byte_perm(t1, t3, 0x7632);
+}
+
 // A . x for an operator of 32 uint32 columns, by one thread.
 __device__ inline uint32_t apply_op(const uint32_t* op, uint32_t x) {
   uint32_t r = 0;
 #pragma unroll
   for (int b = 0; b < 32; ++b) r ^= op[b] & (0u - ((x >> b) & 1u));
   return r;
-}
-
-// A . x by a whole warp whose lanes all hold the same x: lane b takes
-// column b, five xor-shuffles sum the columns; every lane gets A . x.
-__device__ inline uint32_t warp_apply_op(const uint32_t* op, uint32_t x,
-                                         int lane) {
-  uint32_t v = op[lane] & (0u - ((x >> lane) & 1u));
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
 }
 
 // Word w of a block row, in the padded row (one pad word per piece of

@@ -16,30 +16,55 @@
 //
 //     L(run) = XOR_b  A_{B * d_b} . L(block b),
 //
-// d_b = the number of the run's blocks after block b.  Every thread
-// block computes parity and the L of its block exactly as K2 does
-// (gf_common.cuh), advances each L by its own d_b — composing the
-// operators A_{B * 2^j} for the set bits of d_b, one warp-wide 32x32
-// GF(2) matvec each (levels 5.. of the host operator table, which
-// holds A_{(B/32) * 2^i}) — and XORs it into the (run, row) slot with
-// atomicXor.  XOR is associative and commutative, so the result does
-// not depend on the order the blocks land in and is bit-exact; no
-// block waits for another, and a 512 KiB run keeps its 256 blocks of
-// 2 KiB in flight instead of being handed to one block the way the
-// TPU's sequential grid does.  (The other design, a per-run counter
-// whose last block folds, would serialise each run's fold behind its
-// slowest block and need a second pass over the partial Ls.)
+// d_b = the number of the run's blocks after block b.  Each B-byte
+// block (a "tile" of the grid walk) computes its parity and the L of
+// its block, advances that L by d_b and XORs it into the (run, row)
+// slot with atomicXor: the result does not depend on the order the
+// blocks land in and is bit-exact, and a 512 KiB run keeps its 256
+// blocks of 2 KiB in flight.  The L output must be zero before the
+// atomics run: the wrapper zero-fills it on the same stream.
 //
-// Each block finds its run by a binary search over the per-run
-// cumulative block ends (`run_ends`, nruns int64 on the device, staged
-// by the wrapper with a pinned non-blocking copy).  The L output must
-// be zero before the atomics run: the wrapper zero-fills it on the
-// same stream.
-//
-// What bounds it on the H100: bytes, as K2 — read the k data rows,
-// write the m parity rows; the L output is 8 bytes per (run, row).
-// The advance adds at most popcount(d_b) warp matvecs (8 for a 512
-// KiB run of 2 KiB blocks) per row and block.
+// What bounds it on the H100.  Device memory would allow the k data
+// rows in and the m parity rows out in 1.7 us at 8+3 x 512 KiB, but a
+// 512 KiB run is 256 blocks of 2 KiB, about two an SM, so the time is
+// one block's chain of steps, each bound by its latency or by the
+// instructions and shared-memory wavefronts of the two blocks on its
+// SM (the first design, K2's body plus an advance, took 20.7 us;
+// tools/k3_phases.py stamps the steps).  The design shortens each:
+//  * Staging: every word of the k rows is queued at once with a 4-byte
+//    cp.async into rows padded after each lane's piece, so the crc's
+//    reads hit 32 distinct banks.  The tables' gathers from device
+//    memory go out before the copies, so they do not queue behind them;
+//    the tables are built while the copies fly, and
+//    the run is searched once per block, by the one warp that builds no
+//    lane table.
+//  * Parity by packed nibble tables: one lookup serves four parity
+//    rows (byte t of the entry is row t's product, as K1's packed
+//    table), two lookups a byte, each into 16 consecutive words, so a
+//    warp's lookups never meet in a bank; one 4x4 byte transpose a word
+//    (gf_common.cuh transpose4) gives the rows' words.
+//  * crc without bank conflicts: every lane has its own copy of the
+//    256-entry crc table, entry e of lane l at word 32*e + l (32 KiB,
+//    built in the block from one computed entry a lane and 32
+//    shuffles), and runs four independent chains over the quarters of
+//    its piece, their lookups interleaved.
+//  * A fold of one matvec a lane, by nibble tables (8 lookups of 16
+//    entries, no bit loop): the quarters join by the chain operators
+//    A_{(B/128) * j}, then lane l applies its own A_{(B/32) * (31 - l)}
+//    and five xor-shuffles sum the warp:
+//    L(block) = XOR_l A_{(B/32)(31-l)} . L_l.
+//  * The advance by d as one warp matvec a base-256 digit of d (one for
+//    a run of up to 256 blocks): the host's table holds A_{B * c * 256^i}
+//    for every digit value c and position i, and each lane loads its
+//    columns before the chains start.
+//  * 12 warps, so up to 12 shard rows each take one warp.
+// Shared memory (ops/bitsliced.k3_smem, the host's mirror): the parity's
+// nibble tables (1 KiB a group of four parity rows at k = 8), the lane
+// crc tables (32 KiB), the fold's nibble tables (17.5 KiB), k+m staged
+// rows, 16 bytes of run and distance.  The grid (ops/bitsliced.k3_launch)
+// is at most one wave of the blocks the launch bounds and the shared
+// memory keep resident; blocks stride over the rest, building their
+// tables once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,41 +73,382 @@
 
 namespace {
 
-__global__ void gf_encode_crc_acc_kernel(
-    const uint8_t* __restrict__ tables, const uint8_t* __restrict__ in,
-    uint8_t* __restrict__ parity, unsigned long long* __restrict__ lacc,
-    const uint32_t* __restrict__ adv, const int64_t* __restrict__ run_ends,
-    int nruns, int m, int k, int64_t n, int B, int nadv) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const ctt::CrcSmem s = ctt::carve_crc_smem(smem, m, k, B, nadv);
-  ctt::load_crc_tables(s, tables, adv, m, k, nadv);
+constexpr int kThreads = 384;           // 12 warps
+constexpr int kMinBlocks = 3;           // resident an SM by the launch bounds
+constexpr int kMaxThreadsPerSm = 2048;
+constexpr int kSmSmem = 233472;         // shared memory of one SM
+constexpr int kSmemReserved = 1024;     // kept by the card for each block
+constexpr int kSmemLimit = 232448;      // one block's shared memory
+constexpr int kDigitBits = 8;           // the advance table's base: 256
+constexpr int kMaxDigits = 4;
+constexpr int kMaxChains = 4;           // interleaved crc chains a lane
+constexpr int kOpCols = 32 * 32 + (kMaxChains - 1) * 32;  // fold + chain ops
+// nibble tables of the fold: 8 x 16 words per operator, a copy per lane
+// (word (16*i + v)*32 + lane) for the lane operators, one for each chain
+// operator
+constexpr int kNibWords = 8 * 16 * 32 + (kMaxChains - 1) * 8 * 16;
 
-  const int64_t nblocks = n / B;
+// Pad words after each lane's piece of a staged row: one, or two where
+// the piece has an odd number of words, so that wpp + pad is odd and
+// lane l's word t, at l*(wpp+pad) + t, lies in a bank of its own.
+__host__ __device__ inline int k3_pad(int B) { return (B / 128) & 1 ? 2 : 1; }
+
+__host__ __device__ inline int k3_row_words(int B) {
+  return B / 4 + 32 * k3_pad(B);
+}
+
+// Independent crc chains a lane runs over its piece (B/128 words): 4,
+// 2 or 1, whichever divides the piece.
+__host__ __device__ inline int k3_chains(int B) {
+  const int wpp = B / 128;
+  return wpp % 4 == 0 ? 4 : wpp % 2 == 0 ? 2 : 1;
+}
+
+__host__ __device__ inline long long k3_smem_bytes(int m, int k, int B) {
+  const long long groups = (m + 3) / 4;
+  return 4LL * (groups * k * 32 + 256 * 32 + kNibWords +
+                static_cast<long long>(k + m) * k3_row_words(B)) + 16;
+}
+
+#ifdef CTT_K3_PHASES
+// Phase probe (tools/k3_phases.py builds this file with CTT_K3_PHASES):
+// thread 0 of every block stamps clock64() at its start, after its own
+// share of the table builds, after each block-wide step of its first
+// tile and after warp 0's first row, and %globaltimer at its start and
+// end, into the buffer the probe's entry sets.
+constexpr int kPhases = 8;
+__device__ unsigned long long* g_k3_phases;
+__device__ inline unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K3_STAMP(i, v)                                                    \
+  do {                                                                    \
+    if (threadIdx.x == 0 && first && g_k3_phases)                         \
+      g_k3_phases[blockIdx.x * kPhases + (i)] = (v);                      \
+  } while (0)
+#define K3_PROBE_SYNC() __syncthreads()
+#else
+#define K3_STAMP(i, v) do {} while (0)
+#define K3_PROBE_SYNC() do {} while (0)
+#endif
+
+__device__ inline void cp_async4(unsigned dst, const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ inline void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Queue the copy of the B-byte column at col0 of the k data rows into
+// the padded rows: one 4-byte cp.async a word, all in flight at once;
+// a thread takes one column word of every row at a time.
+__device__ inline void stage_rows_async(uint32_t* rows, const uint8_t* in,
+                                        int k, int64_t n, int64_t col0,
+                                        int B, int S, int wpp, int pad) {
+  const uint32_t* src0 = reinterpret_cast<const uint32_t*>(in + col0);
+  const int64_t rs = n / 4;                   // words of a data row
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(rows));
+  for (int w = threadIdx.x; w < B / 4; w += blockDim.x) {
+    const unsigned dst = base + 4u * (w + (w / wpp) * pad);
+    const uint32_t* src = src0 + w;
+    for (int j = 0; j < k; ++j)
+      cp_async4(dst + 4u * j * S, src + j * rs);
+  }
+}
+
+// Nibble tables of the packed parity: for group g of four rows and
+// source row j, T[(g*k + j)*32 + 16*h + v] is the word whose byte t is
+// C[4g+t][j] * (v << 4h) (0 past the last row).  A byte x then costs two
+// lookups, T[x & 15] ^ T[16 + (x >> 4)], each into 16 consecutive words,
+// so 32 lanes' lookups never meet in a bank.  Entry `it` of T, gathered
+// from the (m, k, 256) byte tables in device memory:
+__device__ inline uint32_t nibble_packed_word(const uint8_t* tables, int m,
+                                              int k, int it) {
+  const int gj = it >> 5, e = it & 31;
+  const int g = gj / k, j = gj - g * k;
+  const int x = e < 16 ? e : (e - 16) << 4;
+  uint32_t word = 0;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int i = 4 * g + t;
+    if (i < m)
+      word |= static_cast<uint32_t>(__ldg(tables + (i * k + j) * 256 + x))
+              << (8 * t);
+  }
+  return word;
+}
+
+// The lane crc tables: entry e of lane l at ltab[32*e + l].  A warp
+// computes 32 entries, one a lane, and writes each to its 32 lanes'
+// words with a shuffle, so every store is one conflict-free wavefront.
+__device__ inline void build_lane_crc_table(uint32_t* ltab, int lane,
+                                            int warp, int nwarps) {
+  for (int e0 = 32 * warp; e0 < 256; e0 += 32 * nwarps) {
+    uint32_t c = static_cast<uint32_t>(e0 + lane);
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      c = (c >> 1) ^ (ctt::kCrcPoly & (0u - (c & 1u)));
+#pragma unroll 8
+    for (int i = 0; i < 32; ++i)
+      ltab[(e0 + i) * 32 + lane] = __shfl_sync(0xFFFFFFFFu, c, i);
+  }
+}
+
+// Nibble tables of the fold's operators from their 32 columns (ops):
+// entry v of table i of an operator is A . (v << 4i), the XOR of
+// columns 4i .. 4i+3 that v selects.  Item `it` < kFoldItems is one
+// table: for it < 256, table it >> 5 of lane it & 31's operator (column
+// b of lane l at ops[32*b + l]), to nib[(16*i + v)*32 + l], a copy per
+// lane; then table (it - 256) & 7 of chain operator (it - 256) >> 3
+// (ops[1024 + 32*(j-1) + b]), to nib[4096 + 128*(j-1) + 16*i + v].  Its
+// four columns are loaded by fold_item_load, its 16 entries stored by
+// fold_item_store.  kThreads - 32 >= 256: the last warp builds no lane
+// crc table and searches the run.
+constexpr int kFoldItems = 32 * 8 + (kMaxChains - 1) * 8;
+static_assert(kFoldItems <= kThreads, "one fold item a thread");
+static_assert(kThreads - 32 >= 256, "the last warp builds no lane table");
+
+__device__ inline void fold_item_load(const uint32_t* ops, int it,
+                                      uint32_t (&c)[4]) {
+  if (it < 256) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      c[b] = __ldg(ops + 32 * (4 * (it >> 5) + b) + (it & 31));
+  } else {
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      c[b] = __ldg(ops + 32 * 32 + 32 * ((it - 256) >> 3) +
+                   4 * ((it - 256) & 7) + b);
+  }
+}
+
+__device__ inline void fold_item_store(uint32_t* nib, int it,
+                                       const uint32_t (&c)[4]) {
+  uint32_t* dst;
+  int stride;
+  if (it < 256) {
+    dst = nib + 16 * (it >> 5) * 32 + (it & 31);
+    stride = 32;
+  } else {
+    dst = nib + 8 * 16 * 32 + 128 * ((it - 256) >> 3) + 16 * ((it - 256) & 7);
+    stride = 1;
+  }
+#pragma unroll
+  for (int v = 0; v < 16; ++v)
+    dst[v * stride] = ((v & 1) ? c[0] : 0u) ^ ((v & 2) ? c[1] : 0u) ^
+                      ((v & 4) ? c[2] : 0u) ^ ((v & 8) ? c[3] : 0u);
+}
+
+// A . x by an operator's nibble tables (8 tables of 16 entries, entry v
+// of table i at t[(16*i + v) * stride]).
+__device__ inline uint32_t apply_nibbles(const uint32_t* t, int stride,
+                                         uint32_t x) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    r ^= t[(16 * i + ((x >> (4 * i)) & 15u)) * stride];
+  return r;
+}
+
+// Parity of the staged column: one 4-byte word of every parity row per
+// thread and step, two nibble lookups per data byte and group of four
+// rows, one 4x4 byte transpose a word and group; into the staged parity
+// rows and to `parity`.
+__device__ inline void encode_staged(uint32_t* rows, const uint32_t* T,
+                                     uint8_t* parity, int m, int k,
+                                     int64_t n, int64_t col0, int B, int S,
+                                     int wpp, int pad) {
+  const int groups = (m + 3) / 4;
+  for (int w = threadIdx.x; w < B / 4; w += blockDim.x) {
+    const int pw = w + (w / wpp) * pad;
+    for (int g = 0; g < groups; ++g) {
+      const uint32_t* Tg = T + g * k * 32;
+      uint32_t acc[4] = {0u, 0u, 0u, 0u};
+      for (int j0 = 0; j0 < k; j0 += 4) {
+        uint32_t x[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          x[jj] = j0 + jj < k ? rows[(j0 + jj) * S + pw] : 0u;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          if (j0 + jj < k) {
+            const uint32_t* Tj = Tg + (j0 + jj) * 32;
+#pragma unroll
+            for (int b = 0; b < 4; ++b)
+              acc[b] ^= Tj[(x[jj] >> (8 * b)) & 15u] ^
+                        Tj[16 + ((x[jj] >> (8 * b + 4)) & 15u)];
+          }
+        }
+      }
+      ctt::transpose4(acc);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int i = 4 * g + t;
+        if (i < m) {
+          rows[(k + i) * S + pw] = acc[t];
+          reinterpret_cast<uint32_t*>(parity + i * n + col0)[w] = acc[t];
+        }
+      }
+    }
+  }
+}
+
+// L of lane l's piece (wpp words at p, from state 0) by its own table:
+// `chains` independent chains over consecutive sub-pieces of wpp/chains
+// words, their lookups interleaved, each word XORed in whole before its
+// four byte steps; then joined by the chain operators A_{(B/32/chains)
+// * j} (nibble tables `cnib`, 128 words each, j = 1..).
+__device__ inline uint32_t lane_piece_crc(const uint32_t* p,
+                                          const uint32_t* lt,
+                                          const uint32_t* cnib, int wpp,
+                                          int chains) {
+  const int wpc = wpp / chains;
+  uint32_t crc[kMaxChains] = {0u, 0u, 0u, 0u};
+  for (int t = 0; t < wpc; ++t) {
+    uint32_t x[kMaxChains];
+#pragma unroll
+    for (int c = 0; c < kMaxChains; ++c)
+      x[c] = c < chains ? p[c * wpc + t] ^ crc[c] : 0u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < kMaxChains; ++c)
+        if (c < chains) x[c] = lt[(x[c] & 0xFFu) << 5] ^ (x[c] >> 8);
+#pragma unroll
+    for (int c = 0; c < kMaxChains; ++c) crc[c] = x[c];
+  }
+  uint32_t l = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxChains; ++c) {
+    if (c < chains) {
+      const int j = chains - 1 - c;        // sub-pieces after chain c
+      l ^= j == 0 ? crc[c] : apply_nibbles(cnib + 128 * (j - 1), 1, crc[c]);
+    }
+  }
+  return l;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
+                         const uint8_t* __restrict__ in,
+                         uint8_t* __restrict__ parity,
+                         unsigned long long* __restrict__ lacc,
+                         const uint32_t* __restrict__ ops,
+                         const int64_t* __restrict__ run_ends, int nruns,
+                         int m, int k, int64_t n, int B, int ndigits) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int groups = (m + 3) / 4;
+  const int S = k3_row_words(B);
+  uint32_t* T = smem;                          // groups * k * 32 words
+  uint32_t* ltab = T + groups * k * 32;        // 256 * 32 words
+  uint32_t* nib = ltab + 256 * 32;             // kNibWords
+  uint32_t* rows = nib + kNibWords;            // k + m rows of S words
+  int64_t* s_run = reinterpret_cast<int64_t*>(rows + (k + m) * S);
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  const int wpp = B / 128;                     // words of a lane's piece
+  const int pad = k3_pad(B);
+  const int chains = k3_chains(B);
+  const uint32_t* digits = ops + kOpCols;      // ndigits x 256 operators
+#ifdef CTT_K3_PHASES
+  bool first = true;
+  K3_STAMP(0, clock64());
+  K3_STAMP(6, global_ns());
+#endif
+
+  const int nT = groups * k * 32;               // entries of T
+  const int64_t nblocks = n / B;
   for (int64_t blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-    ctt::encode_block(s, in, parity, m, k, n, blk * B, B);
-    // the run of this block: the first whose end lies past it (empty
-    // runs share their end with the run before and are skipped)
-    int lo = 0, hi = nruns - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (run_ends[mid] > blk) hi = mid;
-      else lo = mid + 1;
+    const bool first_tile = blk == blockIdx.x;
+    // the previous block's crcs have read the rows and the run
+    if (!first_tile) __syncthreads();
+    // the first block's table gathers go out before the staging copies,
+    // so they do not queue behind them
+    uint32_t tword = 0, fcol[4];
+    const bool fold_item = first_tile && threadIdx.x < kFoldItems;
+    if (first_tile && threadIdx.x < nT)
+      tword = nibble_packed_word(tables, m, k, threadIdx.x);
+    if (fold_item) fold_item_load(ops, threadIdx.x, fcol);
+    stage_rows_async(rows, in, k, n, blk * B, B, S, wpp, pad);
+    if (first_tile) {
+      // the copies are in flight: build the tables (the lane crc tables
+      // by warps 0-7)
+      build_lane_crc_table(ltab, lane, warp, nwarps);
+      if (threadIdx.x < nT) T[threadIdx.x] = tword;
+      for (int it = threadIdx.x + blockDim.x; it < nT; it += blockDim.x)
+        T[it] = nibble_packed_word(tables, m, k, it);
+      if (fold_item) fold_item_store(nib, threadIdx.x, fcol);
     }
-    const int64_t dist = run_ends[lo] - 1 - blk;  // blocks after this one
+    if (threadIdx.x == blockDim.x - 32) {
+      // the run of this block, by the last warp, which builds no lane
+      // table: the first run whose end lies past it (empty runs share
+      // their end with the run before and are skipped)
+      int lo = 0, hi = nruns - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (run_ends[mid] > blk) hi = mid;
+        else lo = mid + 1;
+      }
+      s_run[0] = lo;
+      s_run[1] = run_ends[lo] - 1 - blk;       // blocks after this one
+    }
+    K3_STAMP(4, clock64());
+    cp_async_wait_all();
+    __syncthreads();
+    K3_STAMP(1, clock64());
+    encode_staged(rows, T, parity, m, k, n, blk * B, B, S, wpp, pad);
+    __syncthreads();
+    K3_STAMP(2, clock64());
+    const int64_t run = s_run[0];
+    const int64_t dist = s_run[1];
+    // this lane's column of the advance operator of each digit of the
+    // distance, loaded ahead of the crc chains
+    uint32_t dcol[kMaxDigits];
+#pragma unroll
+    for (int i = 0; i < kMaxDigits; ++i) {
+      const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
+      dcol[i] = i < ndigits && c != 0
+                    ? __ldg(digits + (i * 256 + c) * 32 + lane) : 0u;
+    }
     for (int row = warp; row < k + m; row += nwarps) {
-      uint32_t crc = ctt::warp_row_crc(s, row, k, B, lane);
-      crc = __shfl_sync(0xFFFFFFFFu, crc, 0);
-      for (int j = 0; (dist >> j) != 0; ++j)
-        if ((dist >> j) & 1)
-          crc = ctt::warp_apply_op(s.adv + (ctt::kWarpFoldLevels + j) * 32,
-                                   crc, lane);
+      const uint32_t lcrc = lane_piece_crc(
+          rows + row * S + lane * (wpp + pad), ltab + lane,
+          nib + 8 * 16 * 32, wpp, chains);
+      // lane l's A_{(B/32)(31-l)}, then the warp's sum: L of the block
+      uint32_t crc = apply_nibbles(nib + lane, 32, lcrc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        crc ^= __shfl_xor_sync(0xFFFFFFFFu, crc, o);
+#ifdef CTT_K3_PHASES
+      if (row == 0) K3_STAMP(5, clock64());
+#endif
+#pragma unroll
+      for (int i = 0; i < kMaxDigits; ++i) {
+        if (i < ndigits && ((dist >> (kDigitBits * i)) & 255) != 0) {
+          uint32_t v = dcol[i] & (0u - ((crc >> lane) & 1u));
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+          crc = v;
+        }
+      }
       if (lane == 0)
-        atomicXor(lacc + static_cast<int64_t>(lo) * (k + m) + row,
+        atomicXor(lacc + run * (k + m) + row,
                   static_cast<unsigned long long>(crc));
     }
+#ifdef CTT_K3_PHASES
+    K3_PROBE_SYNC();
+    K3_STAMP(3, clock64());
+    K3_STAMP(7, global_ns());
+    first = false;
+#endif
   }
 }
 
@@ -90,29 +456,62 @@ __global__ void gf_encode_crc_acc_kernel(
 
 // tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
 // lacc (nruns, k+m) uint64, ZERO on entry, each uint32 L zero-extended;
-// adv (nadv, 32) uint32 = A_{(B/32) * 2^j}, nadv > 5 + log2(blocks of
-// the longest run); run_ends (nruns,) int64, non-decreasing, the last
-// == n / B.  All contiguous on the device, 16-byte aligned; n % B == 0
-// and B % 128 == 0.  Returns the CUDA error of the launch.
+// ops uint32: 32 x 32 fold operators (column b of lane l's
+// A_{(B/32)(31-l)} at 32*b + l), 3 chain operators of 32 columns
+// (A_{(B/32/chains) * j}, j = 1, 2, 3; k3_chains), then `ndigits` <= 4
+// tables of 256 operators of 32 columns, operator c of table i =
+// A_{B * c * 256^i}; every block's distance to its run's end <
+// 256^ndigits (ops/bitsliced.k3_ops builds them); run_ends
+// (nruns,) int64, non-decreasing, the last == n / B.  All contiguous
+// on the device, 16-byte aligned; n % B == 0 and B % 128 == 0.
+// Returns the CUDA error of the launch.
 extern "C" int ctt_gf_encode_crc_acc(const void* tables, const void* in,
                                      void* parity, void* lacc,
-                                     const void* adv, const void* run_ends,
+                                     const void* ops, const void* run_ends,
                                      int nruns, int m, int k, long long n,
-                                     int B, int nadv, void* stream) {
-  const int threads = 256;
-  const int smem = ctt::crc_smem_bytes(m, k, B, nadv);
+                                     int B, int ndigits, void* stream) {
+  const long long smem = k3_smem_bytes(m, k, B);
+  if (smem > kSmemLimit || B % 128 || B <= 0 || n % B || nruns < 1 ||
+      ndigits < 1 || ndigits > kMaxDigits)
+    return cudaErrorInvalidValue;
+  // the grid: at most one wave (ops/bitsliced.k3_launch)
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long per_sm = kMinBlocks;
+  if (per_sm > kMaxThreadsPerSm / kThreads)
+    per_sm = kMaxThreadsPerSm / kThreads;
+  if (per_sm > kSmSmem / (smem + kSmemReserved))
+    per_sm = kSmSmem / (smem + kSmemReserved);
+  if (per_sm < 1) per_sm = 1;
   long long blocks = n / B;
-  if (blocks > 2048) blocks = 2048;
+  if (blocks > per_sm * sms) blocks = per_sm * sms;
   if (blocks < 1) blocks = 1;
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(gf_encode_crc_acc_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  gf_encode_crc_acc_kernel<<<static_cast<unsigned>(blocks), threads, smem,
+  // granted once for the largest size seen (a first call with a shape
+  // runs before any CUDA-graph capture of it, so capture sees no
+  // attribute call)
+  static int granted = 48 * 1024;
+  const int sm = static_cast<int>(smem);
+  if (sm > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gf_encode_crc_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = sm;
+  }
+  gf_encode_crc_acc_kernel<<<static_cast<unsigned>(blocks), kThreads, sm,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tables), static_cast<const uint8_t*>(in),
       static_cast<uint8_t*>(parity), static_cast<unsigned long long*>(lacc),
-      static_cast<const uint32_t*>(adv),
+      static_cast<const uint32_t*>(ops),
       static_cast<const int64_t*>(run_ends), nruns, m, k,
-      static_cast<int64_t>(n), B, nadv);
+      static_cast<int64_t>(n), B, ndigits);
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef CTT_K3_PHASES
+// The probe's buffer: (grid, 8) uint64 on the device, or null.
+extern "C" int ctt_k3_set_phase_buffer(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_k3_phases, &buf, sizeof(buf)));
+}
+#endif

@@ -61,7 +61,7 @@ MEASURE_CALLS = 20
 # the cache's kernel-generation tag: bumped when K2/K3 change shape, so
 # winners measured under older kernels never satisfy a lookup (they
 # still seed the sweep's ordering)
-KERNEL_GEN = "cuda_k2k3r1"
+KERNEL_GEN = "cuda_k2k3r2"
 
 _lock = threading.Lock()
 
@@ -149,7 +149,8 @@ def _legal(k: int, m: int, wb: int) -> bool:
     if wb <= 0 or block % 128:
         return False
     try:
-        bs._crc_smem_bytes(m, k, block, bs.ACC_LEVELS)
+        bs._crc_smem_bytes(m, k, block)
+        bs.k3_smem(m, k, block)
     except ValueError:
         return False
     return True

@@ -27,6 +27,11 @@ Four hand-written CUDA kernels (csrc/) carry the EC data plane:
   L per (run, shard) of a drain's front-padded runs, one launch: the
   contract of Pallas kernel #4 (`_fused_hier_acc_call` :626), entry
   `fused_hier_acc_call`.  The write path's `combine="kernel"` point.
+  Its per-block body is its own: packed parity by nibble tables, a
+  crc table copy per lane with four interleaved chains, a fold of one
+  nibble-table matvec a lane and an advance by base-256 digits, with
+  `k3_smem` (layout), `k3_launch` (grid) and `k3_ops` (the operators)
+  the host's pure mirrors.
 * K4 `gf_bitmatmul_stream` (csrc/gf_bitmatmul_stream.cu) — K1's
   function with the contraction (the k source rows) split into groups
   that separate threads reduce and XOR together: the counterpart of
@@ -348,21 +353,18 @@ def _cmat_w32(wt: int, device: torch.device) -> torch.Tensor:
         device=device, dtype=torch.float32)
 
 
-WARP_FOLD_LEVELS = 5         # operator levels of the warp crc fold
-ACC_LEVELS = 32              # K3: the fold's 5 + 27 bits of a block's distance
+WARP_FOLD_LEVELS = 5         # operator levels of K2's warp crc fold
 
 
 @functools.lru_cache(maxsize=16)
-def _adv_ops(block: int, device: torch.device,
-             levels: int = WARP_FOLD_LEVELS) -> torch.Tensor:
-    """(levels, 32) uint32 columns of A_{(block/32) * 2^j}, j = 0 ..
-    levels-1 (stored as int32), cached on the device: levels 0-4 are
-    the warp-fold operators of K2 and K3, level 5 + i is A_{block *
-    2^i}, which K3 composes to advance a block's L over the blocks
-    after it in its run."""
+def _adv_ops(block: int, device: torch.device) -> torch.Tensor:
+    """(5, 32) uint32 columns of A_{(block/32) * 2^j}, j = 0 .. 4
+    (stored as int32), cached on the device: the warp-fold operators of
+    K2."""
     from ..common import crc32c as _crc
     piece = block // 32
-    ops = np.stack([_crc.advance_op(piece << j) for j in range(levels)])
+    ops = np.stack([_crc.advance_op(piece << j)
+                    for j in range(WARP_FOLD_LEVELS)])
     return torch.from_numpy(np.ascontiguousarray(ops).view(np.int32)) \
         .to(device)
 
@@ -409,10 +411,11 @@ def _check_encode_crc(tables, chunks, block: int) -> None:
                          f"width multiple of the block ({n} % {block})")
 
 
-def _crc_smem_bytes(m: int, k: int, block: int, levels: int) -> int:
-    """Shared memory of K2/K3 (gf_common.cuh crc_smem_bytes); raises
+def _crc_smem_bytes(m: int, k: int, block: int) -> int:
+    """Shared memory of K2 (gf_common.cuh crc_smem_bytes); raises
     when it exceeds one block's."""
-    smem = m * k * 256 + 256 * 4 + levels * 32 * 4 + (k + m) * (block + 128)
+    smem = (m * k * 256 + 256 * 4 + WARP_FOLD_LEVELS * 32 * 4
+            + (k + m) * (block + 128))
     if smem > SMEM_LIMIT:
         raise ValueError(f"gf_encode_crc: {smem} bytes of shared memory "
                          "exceed one block's")
@@ -422,7 +425,7 @@ def _crc_smem_bytes(m: int, k: int, block: int, levels: int) -> int:
 def _encode_crc_launch(tables, chunks, block: int):
     m, k, n = _check_operands(tables, chunks)
     dev = chunks.device
-    _crc_smem_bytes(m, k, block, WARP_FOLD_LEVELS)
+    _crc_smem_bytes(m, k, block)
     parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
     lout = torch.empty((k + m, n // block), dtype=torch.int64, device=dev)
     if n == 0:
@@ -520,6 +523,105 @@ gf_encode_with_crc.launches = 0
 # K3: fused parity + one crc32c L per (run, shard)
 # ----------------------------------------------------------------------------
 
+K3_THREADS = 384             # threads of a K3 block: 12 warps
+# resident K3 blocks an SM that the launch bounds of
+# csrc/gf_encode_crc_acc.cu guarantee (at most 56 registers a thread)
+K3_BLOCKS_PER_SM = 3
+MAX_THREADS_PER_SM = 2048
+K3_DIGITS = 4                # base-256 digits of a distance the advance covers
+K3_MAX_RUN_BLOCKS = 1 << 27  # blocks of one run
+K3_MAX_CHAINS = 4            # interleaved crc chains a lane
+# the fold's operators as k3_ops gives them: 32 lane operators and the
+# chain operators, 32 columns each
+K3_OP_COLS = 32 * 32 + (K3_MAX_CHAINS - 1) * 32
+# their nibble tables in shared memory: 8 x 16 words an operator, a copy
+# a lane for the lane operators
+K3_NIB_WORDS = 8 * 16 * 32 + (K3_MAX_CHAINS - 1) * 8 * 16
+
+
+def k3_pad(block: int) -> int:
+    """Pad words after each lane's piece (block/128 words) of a row K3
+    stages: 1, or 2 where the piece is odd, so that piece + pad is odd
+    and the 32 lanes' word t of their pieces lie in 32 distinct banks."""
+    return 2 if (block // 128) % 2 else 1
+
+
+def k3_chains(block: int) -> int:
+    """Independent crc chains a K3 lane runs over its piece of
+    block/128 words: 4, 2 or 1, whichever divides the piece."""
+    wpp = block // 128
+    return 4 if wpp % 4 == 0 else 2 if wpp % 2 == 0 else 1
+
+
+@functools.lru_cache(maxsize=1024)
+def k3_smem(m: int, k: int, block: int) -> int:
+    """Bytes of shared memory of one K3 block (csrc/gf_encode_crc_acc.cu
+    k3_smem_bytes mirrors it): the nibble tables of the packed parity
+    (32 words for each group of four parity rows and data row), the lane
+    crc tables (32 KiB: entry e of lane l at word 32*e + l), the fold's
+    nibble tables (K3_NIB_WORDS words), k+m staged rows of block +
+    128*k3_pad(block) bytes, and 16 bytes of run and distance.  Raises
+    ValueError where the block is not a positive multiple of 128 or the
+    layout exceeds SMEM_LIMIT."""
+    if block <= 0 or block % 128:
+        raise ValueError(f"gf_encode_crc_acc needs a block that is a "
+                         f"positive multiple of 128, got {block}")
+    words = (-(-m // 4) * k * 32 + 256 * 32 + K3_NIB_WORDS
+             + (k + m) * (block // 4 + 32 * k3_pad(block)))
+    smem = 4 * words + 16
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gf_encode_crc_acc: {smem} bytes of shared memory "
+                         "exceed one block's")
+    return smem
+
+
+@functools.lru_cache(maxsize=1024)
+def k3_launch(n: int, block: int, k: int, m: int, sm_count: int) -> int:
+    """K3's grid for a width of n bytes (csrc/gf_encode_crc_acc.cu
+    computes the same): one thread block for each block-byte tile of the
+    width, at most one wave — sm_count times the blocks an SM keeps
+    resident by the launch bounds, threads and shared memory — the
+    blocks striding over the rest."""
+    smem = k3_smem(m, k, block) + BLOCK_SMEM_RESERVED
+    per_sm = max(1, min(K3_BLOCKS_PER_SM, MAX_THREADS_PER_SM // K3_THREADS,
+                        SM_SMEM // smem))
+    return max(1, min(n // block, per_sm * sm_count))
+
+
+@functools.lru_cache(maxsize=16)
+def k3_ops(block: int) -> np.ndarray:
+    """The crc operators K3 takes, as one uint32 array: the 32 x 32 fold
+    operators (lane l's A_{(block/32) * (31 - l)}, column b at word
+    32*b + l); the chain operators A_{sub * j}, j = 1 .. K3_MAX_CHAINS-1,
+    sub = block/32/k3_chains(block) bytes, 32 columns each, which join a
+    lane's chains (K3_OP_COLS words so far; every thread block turns
+    them into nibble tables); then K3_DIGITS tables of 256 operators of
+    32 columns, operator c of table i = A_{block * c * 256^i} — the
+    advance of a block's L over c * 256^i blocks."""
+    from ..common import crc32c as _crc
+    piece = block // 32
+    sub = piece // k3_chains(block)
+    fold = np.stack([_crc.advance_op(piece * (31 - lane))
+                     for lane in range(32)])
+    chain = np.stack([_crc.advance_op(sub * j)
+                      for j in range(1, K3_MAX_CHAINS)])
+    ident = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    tabs = []
+    for i in range(K3_DIGITS):
+        step = _crc.advance_op(block << (8 * i))
+        tab = [ident]
+        for _ in range(255):
+            tab.append(_crc.apply_op(step, tab[-1]))
+        tabs.append(np.stack(tab))
+    return np.concatenate([fold.T.ravel(), chain.ravel(),
+                           np.stack(tabs).ravel()]).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=16)
+def _k3_ops_tensor(block: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(k3_ops(block).view(np.int32).copy()).to(device)
+
+
 def _run_bounds(run_ends: torch.Tensor) -> list[tuple[int, int]]:
     ends = [int(e) for e in run_ends.tolist()]
     return list(zip([0] + ends[:-1], ends))
@@ -562,7 +664,7 @@ def fused_hier_acc_call(tables: torch.Tensor, chunks: torch.Tensor,
         return fused_hier_acc_call_plain(tables, chunks, run_ends, wb)
     m, k, n = _check_operands(tables, chunks)
     dev = chunks.device
-    _crc_smem_bytes(m, k, block, ACC_LEVELS)
+    k3_smem(m, k, block)
     nruns = run_ends.numel()
     parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
     # the kernel XORs into the L slots: zero them first, in stream order
@@ -571,11 +673,11 @@ def fused_hier_acc_call(tables: torch.Tensor, chunks: torch.Tensor,
         return parity, lacc
     from . import _build
     lib = _build.load()
-    adv = _adv_ops(block, dev, ACC_LEVELS)
+    ops = _k3_ops_tensor(block, dev)
     rc = lib.ctt_gf_encode_crc_acc(tables.data_ptr(), chunks.data_ptr(),
                                    parity.data_ptr(), lacc.data_ptr(),
-                                   adv.data_ptr(), run_ends.data_ptr(),
-                                   nruns, m, k, n, block, ACC_LEVELS,
+                                   ops.data_ptr(), run_ends.data_ptr(),
+                                   nruns, m, k, n, block, K3_DIGITS,
                                    _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_encode_crc_acc launch failed: CUDA error {rc}")
@@ -596,7 +698,7 @@ def _acc_launch_args(run_blocks, device: torch.device):
     counts = np.asarray(list(run_blocks), dtype=np.int64)
     if counts.size == 0 or (counts < 0).any():
         raise ValueError(f"bad run block counts {counts.tolist()}")
-    if counts.max() >= 1 << (ACC_LEVELS - WARP_FOLD_LEVELS):
+    if counts.max() >= K3_MAX_RUN_BLOCKS:
         raise ValueError("a run of K3 is limited to 2^27 blocks")
     return stage(np.cumsum(counts), device)
 

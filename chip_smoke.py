@@ -28,7 +28,10 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    (encode, decode, the device entry), K2's three entries (hier, w32
    flat, and the byte entry of Pallas #6 at 8+3 x 512 KiB), K3 (one run,
    two runs) and K4 (Pallas #7's counterpart, 8 x 512 KiB -> 3, its
-   default grid).
+   default grid).  Then the K3 table: K3 on one 512 KiB run at B = 1,
+   2 and 4 KiB, with its L zero-fill and without, and K2's hier entry
+   at the same block as the run's control; the zero-fill alone; the two
+   K3 rows beside their times before K3's redesign.
 2. Main path at combine="xla".  The port's ECBackend +
    LocalShardBackend over MemStore, plugin `torch`, k=8 m=3 cauchy (the
    ISA-L default profile), stripe unit 4096 B, dispatch-ahead depth 2,
@@ -84,10 +87,10 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels
-JSON line, the main paths', the benchmark's, the w32 sweep's and the
-A/B's lines, and as the last line {"ok": true, "device": {"platform":
-"gpu", "kind": ..., "count": 1}} (the script drives one card).  Any
-failure raises and exits non-zero.
+and K3 table JSON lines, the main paths', the benchmark's, the w32
+sweep's and the A/B's lines, and as the last line {"ok": true,
+"device": {"platform": "gpu", "kind": ..., "count": 1}} (the script
+drives one card).  Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -371,6 +374,87 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
     ]
     del flush
     return rows
+
+
+# Graph times of the two K3 rows before K3's redesign (PERF.md §6:
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W), the `earlier`
+# column of the K3 table
+K3_EARLIER_US = {"gf_encode_crc_acc (K3, one 512 KiB run)": 20.672,
+                 "gf_encode_crc_acc (K3, 2 runs, one odd-width)": 29.206}
+
+
+def k3_block_table(dev, bs, gf, rng, rows) -> dict:
+    """K3 on one 8+3 x 512 KiB run at B = 1, 2 and 4 KiB (the
+    autotuner's wb 256, 512, 1024): the wrapper (its L zero-fill plus
+    the kernel), the kernel alone (the C entry on a slot zeroed once,
+    its XORs left to pile up while timed), and K2's hier entry at the
+    same block as this run's control; each checked exactly against its
+    plain version, then timed as the kernel rows are (graph replays).
+    Also the zero-fill of the L slots alone, and the two K3 kernel rows
+    beside their times before the redesign."""
+    from ceph_tpu_torch.ops import _build
+    lib = _build.load()
+    enc = bs.tables_tensor(gf.product_tables(gf.cauchy_rs_matrix(K, M)[K:]),
+                           dev)
+    run = BIG // K
+    data = torch.from_numpy(
+        rng.integers(0, 256, (K, run), dtype=np.uint8)).to(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    fill_us = graph_event_ms(lambda: torch.zeros(
+        (1, K + M), dtype=torch.int64, device=dev)) * 1e3
+    by_block = []
+    for wb in (256, 512, 1024):
+        block = 4 * wb
+        staged, ends = bs._acc_launch_args([run // block], dev)
+        torch.cuda.synchronize()
+        del staged
+        want = bs.fused_hier_acc_call_plain(enc, data, ends, wb)
+        got = bs.fused_hier_acc_call(enc, data, ends, wb)
+        k2, k2_want = (bs.fused_hier_call(enc, data, wb),
+                       bs.fused_hier_call_plain(enc, data, wb))
+        ops = bs._k3_ops_tensor(block, dev)
+        parity = torch.empty((M, run), dtype=torch.uint8, device=dev)
+        lacc = torch.zeros((1, K + M), dtype=torch.int64, device=dev)
+
+        def alone():
+            rc = lib.ctt_gf_encode_crc_acc(
+                enc.data_ptr(), data.data_ptr(), parity.data_ptr(),
+                lacc.data_ptr(), ops.data_ptr(), ends.data_ptr(), 1, M, K,
+                run, block, bs.K3_DIGITS,
+                torch.cuda.current_stream(dev).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"K3 launch failed: CUDA error {rc}")
+        alone()
+        torch.cuda.synchronize()
+        for name, a, b in (("K3", got, want), ("K3 alone", (parity, lacc),
+                                                want), ("K2 hier", k2,
+                                                        k2_want)):
+            if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                raise AssertionError(f"{name} at B = {block} differs from "
+                                     "its plain version")
+        t_bound, _ = bound(K * run + M * run + (K + M) * 8,
+                           2 * M * K * run + 2 * (K + M) * run)
+        row = {"block": block, "wb": wb,
+               "grid": bs.k3_launch(run, block, K, M, sms),
+               "k3_us": graph_event_ms(
+                   lambda: bs.fused_hier_acc_call(enc, data, ends, wb)) * 1e3,
+               "k3_alone_us": graph_event_ms(alone) * 1e3,
+               "k2_hier_us": graph_event_ms(
+                   lambda: bs.fused_hier_call(enc, data, wb)) * 1e3,
+               "bound_us": t_bound * 1e3}
+        by_block.append(row)
+        print(f"# k3_table B={block:5d} grid={row['grid']:4d}  K3 "
+              f"{row['k3_us']:8.3f} us  alone {row['k3_alone_us']:8.3f} us  "
+              f"K2 hier {row['k2_hier_us']:8.3f} us  bound "
+              f"{row['bound_us']:.3f} us", flush=True)
+    print(f"# k3_table L zero-fill alone {fill_us:.3f} us", flush=True)
+    earlier = [{"name": r["name"], "earlier_us": K3_EARLIER_US[r["name"]],
+                "us": r["ms"] * 1e3, "single_us": r["single_ms"] * 1e3,
+                "cold_us": r["cold_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3}
+               for r in rows if r["name"] in K3_EARLIER_US]
+    if len(earlier) != 2:
+        raise AssertionError(f"K3 rows missing: {[r['name'] for r in rows]}")
+    return {"fill_us": fill_us, "by_block": by_block, "rows": earlier}
 
 
 def pin_point(cache_file, dev, point: dict) -> None:
@@ -984,6 +1068,7 @@ def main() -> int:
     codec = ErasureCodePluginRegistry.instance().factory(
         "torch", {"k": str(K), "m": str(M), "device": str(dev)})
     rows = phase_kernels(dev, bs, gf, rng, codec)
+    k3_table = k3_block_table(dev, bs, gf, rng, rows)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         pin_point(tmp / "pinned_xla.json", dev,
@@ -1012,6 +1097,7 @@ def main() -> int:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
     print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"k3_table": k3_table}), flush=True)
     print(json.dumps({"sweep": sweep}), flush=True)
     print(json.dumps({"main_path_xla": perf_xla}), flush=True)
     print(json.dumps({"main_path_kernel": perf_kernel,

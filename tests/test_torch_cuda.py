@@ -265,7 +265,14 @@ def test_plugin_on_card_matches_cpu(cuda_device):
     (8, 3, 512, [256]),                    # one 512 KiB run
     (8, 3, 512, [256, 151]),               # two runs
     (4, 2, 128, [3, 0, 1, 9, 2]),          # an empty run among them
-    (10, 4, 1024, [1, 1, 70])])
+    (10, 4, 1024, [1, 1, 70]),
+    (8, 3, 256, [512]),                    # the autotuner's other blocks
+    (8, 3, 1024, [128, 3]),
+    (8, 3, 512, [1]),                      # a run of one block (distance 0)
+    (8, 3, 512, [1500, 1, 700]),           # more blocks than the grid
+    (8, 6, 512, [40, 9]),                  # m > 4: two packed groups
+    (8, 3, 512, [0, 64, 5]),               # an empty first run
+    (5, 3, 96, [7, 2])])                   # odd pieces: two pad words
 def test_k3_matches_plain(cuda_device, k, m, wb, blocks):
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs
