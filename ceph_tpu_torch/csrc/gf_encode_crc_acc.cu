@@ -1,12 +1,30 @@
-// K3 gf_encode_crc_acc: parity (m, n) = C (m, k) x data (k, n) over
-// GF(2^8), AND one crc32c linear part L = crc(run, 0) per (run, shard
-// row) of all k+m rows, from one launch.  The n columns are a drain's
-// runs laid end to end, each front-padded with zeros to a multiple of
-// the block B = 4*wb; a zero prefix leaves L unchanged
+// K2 gf_encode_crc and K3 gf_encode_crc_acc: parity (m, n) = C (m, k) x
+// data (k, n) over GF(2^8) and crc32c linear parts L of all k+m shard
+// rows, from one launch, by one per-block body: the kernel template
+// below, instantiated once for K3 (kAcc) and twice for K2 (the shape
+// branches of kLaneTables).
+//
+// K2 writes L = crc(block, 0) of every B-byte block of every shard row.
+// It replaces three Pallas kernels that compute that function and
+// differ only in how the TPU's VMEM split the crc matrix or laid out
+// the bytes:
+//   #1 `_make_gf_crc_kernel_w32_hier` (ceph_tpu/ops/bitsliced.py:523,
+//      via `_fused_hier_call` :586): L per 4*wb-byte sub-block;
+//   #2 `_make_gf_crc_kernel_w32` (:437, via
+//      `gf_encode_with_crc_pallas_w32` :459): L per 2 KiB tile;
+//   #6 `_gf_crc_kernel` (:385, via `gf_encode_with_crc_pallas` :411):
+//      the same on the byte layout.
+// All three entries launch it with their block size B.  A block's L
+// goes straight to its slot: no run search, no advance, no atomics and
+// no zero-fill.
+//
+// K3 writes one L = crc(run, 0) per (run, shard row).  The n columns
+// are a drain's runs laid end to end, each front-padded with zeros to
+// a multiple of the block B = 4*wb; a zero prefix leaves L unchanged
 // (L(0^p || X) = L(X)) and encodes to zero parity, so each run's L
 // covers its every byte and the host folds no tail.
 //
-// Replaces the Pallas kernel `_make_gf_crc_kernel_w32_hier_acc`
+// K3 replaces the Pallas kernel `_make_gf_crc_kernel_w32_hier_acc`
 // (ceph_tpu/ops/bitsliced.py:539, via `_fused_hier_acc_call` :626).
 // That kernel walks a sequential grid and keeps each run's L in an
 // output block that stays resident in VMEM, folding
@@ -24,20 +42,20 @@
 // blocks of 2 KiB in flight.  The L output must be zero before the
 // atomics run: the wrapper zero-fills it on the same stream.
 //
-// What bounds it on the H100.  Device memory would allow the k data
+// What bounds both on the H100.  Device memory would allow the k data
 // rows in and the m parity rows out in 1.7 us at 8+3 x 512 KiB, but a
 // 512 KiB run is 256 blocks of 2 KiB, about two an SM, so the time is
 // one block's chain of steps, each bound by its latency or by the
 // instructions and shared-memory wavefronts of the two blocks on its
-// SM (the first design, K2's body plus an advance, took 20.7 us;
-// tools/k3_phases.py stamps the steps).  The design shortens each:
+// SM (K3's first design, K2's old body plus an advance, took 20.7 us;
+// tools/k3_phases.py stamps the steps).  The body shortens each:
 //  * Staging: every word of the k rows is queued at once with a 4-byte
 //    cp.async into rows padded after each lane's piece, so the crc's
 //    reads hit 32 distinct banks.  The tables' gathers from device
 //    memory go out before the copies, so they do not queue behind them;
 //    the tables are built while the copies fly, and
-//    the run is searched once per block, by the one warp that builds no
-//    lane table.
+//    K3's run is searched once per block, by the one warp that builds
+//    no lane table.
 //  * Parity by packed nibble tables: one lookup serves four parity
 //    rows (byte t of the entry is row t's product, as K1's packed
 //    table), two lookups a byte, each into 16 consecutive words, so a
@@ -53,18 +71,23 @@
 //    A_{(B/128) * j}, then lane l applies its own A_{(B/32) * (31 - l)}
 //    and five xor-shuffles sum the warp:
 //    L(block) = XOR_l A_{(B/32)(31-l)} . L_l.
-//  * The advance by d as one warp matvec a base-256 digit of d (one for
-//    a run of up to 256 blocks): the host's table holds A_{B * c * 256^i}
-//    for every digit value c and position i, and each lane loads its
-//    columns before the chains start.
+//  * K3's advance by d as one warp matvec a base-256 digit of d (one
+//    for a run of up to 256 blocks): the host's table holds
+//    A_{B * c * 256^i} for every digit value c and position i, and each
+//    lane loads its columns before the chains start.
 //  * 12 warps, so up to 12 shard rows each take one warp.
 // Shared memory (ops/bitsliced.k3_smem, the host's mirror): the parity's
 // nibble tables (1 KiB a group of four parity rows at k = 8), the lane
 // crc tables (32 KiB), the fold's nibble tables (17.5 KiB), k+m staged
-// rows, 16 bytes of run and distance.  The grid (ops/bitsliced.k3_launch)
-// is at most one wave of the blocks the launch bounds and the shared
-// memory keep resident; blocks stride over the rest, building their
-// tables once.
+// rows, 16 bytes of run and distance.  Where that does not fit one
+// block (k+m rows of 4-8 KiB), K2 takes its narrow branch, chosen by
+// the shape alone (ops/bitsliced.k2_lane_tables and _crc_smem_bytes):
+// one crc table the lanes share (its lookups meet in banks) and no fold
+// tables, the lane and chain operators applied bit by bit from their
+// columns in device memory (through L1).  The grid
+// (ops/bitsliced.k3_launch) is at most one wave of the blocks the
+// launch bounds and the shared memory keep resident; blocks stride over
+// the rest, building their tables once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -104,9 +127,12 @@ __host__ __device__ inline int k3_chains(int B) {
   return wpp % 4 == 0 ? 4 : wpp % 2 == 0 ? 2 : 1;
 }
 
-__host__ __device__ inline long long k3_smem_bytes(int m, int k, int B) {
+// Bytes of shared memory of one block: K3's layout with the lane crc
+// tables and the fold's nibble tables, or K2's narrow one with one crc
+// table and no fold tables.
+inline long long block_smem_bytes(int m, int k, int B, bool lane_tables) {
   const long long groups = (m + 3) / 4;
-  return 4LL * (groups * k * 32 + 256 * 32 + kNibWords +
+  return 4LL * (groups * k * 32 + (lane_tables ? 256 * 32 + kNibWords : 256) +
                 static_cast<long long>(k + m) * k3_row_words(B)) + 16;
 }
 
@@ -183,16 +209,21 @@ __device__ inline uint32_t nibble_packed_word(const uint8_t* tables, int m,
   return word;
 }
 
+// Entry e of the crc32c byte table.
+__device__ inline uint32_t crc_table_entry(uint32_t c) {
+#pragma unroll
+  for (int t = 0; t < 8; ++t)
+    c = (c >> 1) ^ (ctt::kCrcPoly & (0u - (c & 1u)));
+  return c;
+}
+
 // The lane crc tables: entry e of lane l at ltab[32*e + l].  A warp
 // computes 32 entries, one a lane, and writes each to its 32 lanes'
 // words with a shuffle, so every store is one conflict-free wavefront.
 __device__ inline void build_lane_crc_table(uint32_t* ltab, int lane,
                                             int warp, int nwarps) {
   for (int e0 = 32 * warp; e0 < 256; e0 += 32 * nwarps) {
-    uint32_t c = static_cast<uint32_t>(e0 + lane);
-#pragma unroll
-    for (int t = 0; t < 8; ++t)
-      c = (c >> 1) ^ (ctt::kCrcPoly & (0u - (c & 1u)));
+    const uint32_t c = crc_table_entry(static_cast<uint32_t>(e0 + lane));
 #pragma unroll 8
     for (int i = 0; i < 32; ++i)
       ltab[(e0 + i) * 32 + lane] = __shfl_sync(0xFFFFFFFFu, c, i);
@@ -255,6 +286,18 @@ __device__ inline uint32_t apply_nibbles(const uint32_t* t, int stride,
   return r;
 }
 
+// A . x by an operator's 32 columns in device memory (column b at
+// col[b * stride]), bit by bit: K2's narrow branch, which has no room
+// for the nibble tables.
+__device__ inline uint32_t apply_columns(const uint32_t* col, int stride,
+                                         uint32_t x) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int b = 0; b < 32; ++b)
+    r ^= __ldg(col + b * stride) & (0u - ((x >> b) & 1u));
+  return r;
+}
+
 // Parity of the staged column: one 4-byte word of every parity row per
 // thread and step, two nibble lookups per data byte and group of four
 // rows, one 4x4 byte transpose a word and group; into the staged parity
@@ -298,15 +341,19 @@ __device__ inline void encode_staged(uint32_t* rows, const uint32_t* T,
   }
 }
 
-// L of lane l's piece (wpp words at p, from state 0) by its own table:
-// `chains` independent chains over consecutive sub-pieces of wpp/chains
-// words, their lookups interleaved, each word XORed in whole before its
-// four byte steps; then joined by the chain operators A_{(B/32/chains)
-// * j} (nibble tables `cnib`, 128 words each, j = 1..).
+// L of lane l's piece (wpp words at p, from state 0) by its crc table
+// (entry e at lt[32*e] with lane tables, else lt[e]): `chains`
+// independent chains over consecutive sub-pieces of wpp/chains words,
+// their lookups interleaved, each word XORed in whole before its four
+// byte steps; then joined by the chain operators A_{(B/32/chains) * j},
+// j = 1.. (with lane tables their nibble tables at `chain`, 128 words
+// each; else their columns, 32 words each).
+template <bool kLaneTables>
 __device__ inline uint32_t lane_piece_crc(const uint32_t* p,
                                           const uint32_t* lt,
-                                          const uint32_t* cnib, int wpp,
+                                          const uint32_t* chain, int wpp,
                                           int chains) {
+  constexpr int kShift = kLaneTables ? 5 : 0;
   const int wpc = wpp / chains;
   uint32_t crc[kMaxChains] = {0u, 0u, 0u, 0u};
   for (int t = 0; t < wpc; ++t) {
@@ -318,7 +365,7 @@ __device__ inline uint32_t lane_piece_crc(const uint32_t* p,
     for (int b = 0; b < 4; ++b)
 #pragma unroll
       for (int c = 0; c < kMaxChains; ++c)
-        if (c < chains) x[c] = lt[(x[c] & 0xFFu) << 5] ^ (x[c] >> 8);
+        if (c < chains) x[c] = lt[(x[c] & 0xFFu) << kShift] ^ (x[c] >> 8);
 #pragma unroll
     for (int c = 0; c < kMaxChains; ++c) crc[c] = x[c];
   }
@@ -327,27 +374,38 @@ __device__ inline uint32_t lane_piece_crc(const uint32_t* p,
   for (int c = 0; c < kMaxChains; ++c) {
     if (c < chains) {
       const int j = chains - 1 - c;        // sub-pieces after chain c
-      l ^= j == 0 ? crc[c] : apply_nibbles(cnib + 128 * (j - 1), 1, crc[c]);
+      if (j == 0)
+        l ^= crc[c];
+      else if constexpr (kLaneTables)
+        l ^= apply_nibbles(chain + 128 * (j - 1), 1, crc[c]);
+      else
+        l ^= apply_columns(chain + 32 * (j - 1), 1, crc[c]);
     }
   }
   return l;
 }
 
+// One thread block's walk over its B-byte blocks.  kAcc (K3): advance
+// each block's L to its run's end and XOR it into the (run, row) slot
+// of `lout`; else (K2) write it to slot (row, block).  kLaneTables:
+// K3's layout; else K2's narrow branch (one crc table, the operators'
+// columns read from `ops`).
+template <bool kAcc, bool kLaneTables>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
-                         const uint8_t* __restrict__ in,
-                         uint8_t* __restrict__ parity,
-                         unsigned long long* __restrict__ lacc,
-                         const uint32_t* __restrict__ ops,
-                         const int64_t* __restrict__ run_ends, int nruns,
-                         int m, int k, int64_t n, int B, int ndigits) {
+gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
+                     const uint8_t* __restrict__ in,
+                     uint8_t* __restrict__ parity,
+                     unsigned long long* __restrict__ lout,
+                     const uint32_t* __restrict__ ops,
+                     const int64_t* __restrict__ run_ends, int nruns, int m,
+                     int k, int64_t n, int B, int ndigits) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int groups = (m + 3) / 4;
   const int S = k3_row_words(B);
   uint32_t* T = smem;                          // groups * k * 32 words
-  uint32_t* ltab = T + groups * k * 32;        // 256 * 32 words
-  uint32_t* nib = ltab + 256 * 32;             // kNibWords
-  uint32_t* rows = nib + kNibWords;            // k + m rows of S words
+  uint32_t* ltab = T + groups * k * 32;        // 256 * 32 words, or 256
+  uint32_t* nib = ltab + (kLaneTables ? 256 * 32 : 256);  // kNibWords, or 0
+  uint32_t* rows = nib + (kLaneTables ? kNibWords : 0);   // k + m rows of S
   int64_t* s_run = reinterpret_cast<int64_t*>(rows + (k + m) * S);
 
   const int lane = threadIdx.x & 31;
@@ -357,6 +415,9 @@ gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
   const int pad = k3_pad(B);
   const int chains = k3_chains(B);
   const uint32_t* digits = ops + kOpCols;      // ndigits x 256 operators
+  // the crc table a lane reads, the chain and the lane fold operators
+  const uint32_t* lt = kLaneTables ? ltab + lane : ltab;
+  const uint32_t* chain = kLaneTables ? nib + 8 * 16 * 32 : ops + 32 * 32;
 #ifdef CTT_K3_PHASES
   bool first = true;
   K3_STAMP(0, clock64());
@@ -372,7 +433,8 @@ gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
     // the first block's table gathers go out before the staging copies,
     // so they do not queue behind them
     uint32_t tword = 0, fcol[4];
-    const bool fold_item = first_tile && threadIdx.x < kFoldItems;
+    const bool fold_item =
+        kLaneTables && first_tile && threadIdx.x < kFoldItems;
     if (first_tile && threadIdx.x < nT)
       tword = nibble_packed_word(tables, m, k, threadIdx.x);
     if (fold_item) fold_item_load(ops, threadIdx.x, fcol);
@@ -380,13 +442,16 @@ gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
     if (first_tile) {
       // the copies are in flight: build the tables (the lane crc tables
       // by warps 0-7)
-      build_lane_crc_table(ltab, lane, warp, nwarps);
+      if (kLaneTables)
+        build_lane_crc_table(ltab, lane, warp, nwarps);
+      else if (threadIdx.x < 256)
+        ltab[threadIdx.x] = crc_table_entry(threadIdx.x);
       if (threadIdx.x < nT) T[threadIdx.x] = tword;
       for (int it = threadIdx.x + blockDim.x; it < nT; it += blockDim.x)
         T[it] = nibble_packed_word(tables, m, k, it);
       if (fold_item) fold_item_store(nib, threadIdx.x, fcol);
     }
-    if (threadIdx.x == blockDim.x - 32) {
+    if (kAcc && threadIdx.x == blockDim.x - 32) {
       // the run of this block, by the last warp, which builds no lane
       // table: the first run whose end lies past it (empty runs share
       // their end with the run before and are skipped)
@@ -406,42 +471,49 @@ gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
     encode_staged(rows, T, parity, m, k, n, blk * B, B, S, wpp, pad);
     __syncthreads();
     K3_STAMP(2, clock64());
-    const int64_t run = s_run[0];
-    const int64_t dist = s_run[1];
+    const int64_t run = kAcc ? s_run[0] : 0;
+    const int64_t dist = kAcc ? s_run[1] : 0;
     // this lane's column of the advance operator of each digit of the
     // distance, loaded ahead of the crc chains
     uint32_t dcol[kMaxDigits];
 #pragma unroll
     for (int i = 0; i < kMaxDigits; ++i) {
       const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
-      dcol[i] = i < ndigits && c != 0
+      dcol[i] = kAcc && i < ndigits && c != 0
                     ? __ldg(digits + (i * 256 + c) * 32 + lane) : 0u;
     }
     for (int row = warp; row < k + m; row += nwarps) {
-      const uint32_t lcrc = lane_piece_crc(
-          rows + row * S + lane * (wpp + pad), ltab + lane,
-          nib + 8 * 16 * 32, wpp, chains);
+      const uint32_t lcrc = lane_piece_crc<kLaneTables>(
+          rows + row * S + lane * (wpp + pad), lt, chain, wpp, chains);
       // lane l's A_{(B/32)(31-l)}, then the warp's sum: L of the block
-      uint32_t crc = apply_nibbles(nib + lane, 32, lcrc);
+      uint32_t crc;
+      if constexpr (kLaneTables)
+        crc = apply_nibbles(nib + lane, 32, lcrc);
+      else
+        crc = apply_columns(ops + lane, 32, lcrc);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         crc ^= __shfl_xor_sync(0xFFFFFFFFu, crc, o);
 #ifdef CTT_K3_PHASES
       if (row == 0) K3_STAMP(5, clock64());
 #endif
+      if (kAcc) {
 #pragma unroll
-      for (int i = 0; i < kMaxDigits; ++i) {
-        if (i < ndigits && ((dist >> (kDigitBits * i)) & 255) != 0) {
-          uint32_t v = dcol[i] & (0u - ((crc >> lane) & 1u));
+        for (int i = 0; i < kMaxDigits; ++i) {
+          if (i < ndigits && ((dist >> (kDigitBits * i)) & 255) != 0) {
+            uint32_t v = dcol[i] & (0u - ((crc >> lane) & 1u));
 #pragma unroll
-          for (int o = 16; o > 0; o >>= 1)
-            v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
-          crc = v;
+            for (int o = 16; o > 0; o >>= 1)
+              v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+            crc = v;
+          }
         }
+        if (lane == 0)
+          atomicXor(lout + run * (k + m) + row,
+                    static_cast<unsigned long long>(crc));
+      } else if (lane == 0) {
+        lout[row * nblocks + blk] = crc;       // zero-extended
       }
-      if (lane == 0)
-        atomicXor(lacc + run * (k + m) + row,
-                  static_cast<unsigned long long>(crc));
     }
 #ifdef CTT_K3_PHASES
     K3_PROBE_SYNC();
@@ -452,29 +524,12 @@ gf_encode_crc_acc_kernel(const uint8_t* __restrict__ tables,
   }
 }
 
-}  // namespace
-
-// tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
-// lacc (nruns, k+m) uint64, ZERO on entry, each uint32 L zero-extended;
-// ops uint32: 32 x 32 fold operators (column b of lane l's
-// A_{(B/32)(31-l)} at 32*b + l), 3 chain operators of 32 columns
-// (A_{(B/32/chains) * j}, j = 1, 2, 3; k3_chains), then `ndigits` <= 4
-// tables of 256 operators of 32 columns, operator c of table i =
-// A_{B * c * 256^i}; every block's distance to its run's end <
-// 256^ndigits (ops/bitsliced.k3_ops builds them); run_ends
-// (nruns,) int64, non-decreasing, the last == n / B.  All contiguous
-// on the device, 16-byte aligned; n % B == 0 and B % 128 == 0.
-// Returns the CUDA error of the launch.
-extern "C" int ctt_gf_encode_crc_acc(const void* tables, const void* in,
-                                     void* parity, void* lacc,
-                                     const void* ops, const void* run_ends,
-                                     int nruns, int m, int k, long long n,
-                                     int B, int ndigits, void* stream) {
-  const long long smem = k3_smem_bytes(m, k, B);
-  if (smem > kSmemLimit || B % 128 || B <= 0 || n % B || nruns < 1 ||
-      ndigits < 1 || ndigits > kMaxDigits)
-    return cudaErrorInvalidValue;
-  // the grid: at most one wave (ops/bitsliced.k3_launch)
+// Launch one instantiation with `smem` bytes of shared memory on a grid
+// of at most one wave (ops/bitsliced.k3_launch); returns the CUDA error.
+template <bool kAcc, bool kLaneTables>
+int launch(const void* tables, const void* in, void* parity, void* lout,
+           const void* ops, const void* run_ends, int nruns, int m, int k,
+           long long n, int B, int ndigits, long long smem, void* stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -494,19 +549,71 @@ extern "C" int ctt_gf_encode_crc_acc(const void* tables, const void* in,
   const int sm = static_cast<int>(smem);
   if (sm > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gf_encode_crc_acc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        sm);
+        gf_encode_crc_kernel<kAcc, kLaneTables>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = sm;
   }
-  gf_encode_crc_acc_kernel<<<static_cast<unsigned>(blocks), kThreads, sm,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(tables), static_cast<const uint8_t*>(in),
-      static_cast<uint8_t*>(parity), static_cast<unsigned long long*>(lacc),
-      static_cast<const uint32_t*>(ops),
-      static_cast<const int64_t*>(run_ends), nruns, m, k,
-      static_cast<int64_t>(n), B, ndigits);
+  gf_encode_crc_kernel<kAcc, kLaneTables>
+      <<<static_cast<unsigned>(blocks), kThreads, sm,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const uint8_t*>(tables),
+          static_cast<const uint8_t*>(in), static_cast<uint8_t*>(parity),
+          static_cast<unsigned long long*>(lout),
+          static_cast<const uint32_t*>(ops),
+          static_cast<const int64_t*>(run_ends), nruns, m, k,
+          static_cast<int64_t>(n), B, ndigits);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2.  tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
+// lout (k+m, n/B) uint64 holding each uint32 L zero-extended (so the
+// wrapper hands it out as an int64 tensor without a conversion pass);
+// ops uint32: the first kOpCols words of K3's operators (the fold and
+// chain operators of block B; ops/bitsliced.k3_ops).  The branch is the
+// shape's: K3's layout where it fits one block, else the narrow one
+// (ops/bitsliced.k2_lane_tables).  All contiguous on the device, 16-byte
+// aligned; n % B == 0 and B % 128 == 0.  Returns the CUDA error of the
+// launch.
+extern "C" int ctt_gf_encode_crc(const void* tables, const void* in,
+                                 void* parity, void* lout, const void* ops,
+                                 int m, int k, long long n, int B,
+                                 void* stream) {
+  if (B % 128 || B <= 0 || n % B) return cudaErrorInvalidValue;
+  const long long wide = block_smem_bytes(m, k, B, true);
+  if (wide <= kSmemLimit)
+    return launch<false, true>(tables, in, parity, lout, ops, nullptr, 1, m,
+                               k, n, B, 0, wide, stream);
+  const long long narrow = block_smem_bytes(m, k, B, false);
+  if (narrow > kSmemLimit) return cudaErrorInvalidValue;
+  return launch<false, false>(tables, in, parity, lout, ops, nullptr, 1, m,
+                              k, n, B, 0, narrow, stream);
+}
+
+// K3.  tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
+// lacc (nruns, k+m) uint64, ZERO on entry, each uint32 L zero-extended;
+// ops uint32: 32 x 32 fold operators (column b of lane l's
+// A_{(B/32)(31-l)} at 32*b + l), 3 chain operators of 32 columns
+// (A_{(B/32/chains) * j}, j = 1, 2, 3; k3_chains), then `ndigits` <= 4
+// tables of 256 operators of 32 columns, operator c of table i =
+// A_{B * c * 256^i}; every block's distance to its run's end <
+// 256^ndigits (ops/bitsliced.k3_ops builds them); run_ends
+// (nruns,) int64, non-decreasing, the last == n / B.  All contiguous
+// on the device, 16-byte aligned; n % B == 0 and B % 128 == 0.
+// Returns the CUDA error of the launch.
+extern "C" int ctt_gf_encode_crc_acc(const void* tables, const void* in,
+                                     void* parity, void* lacc,
+                                     const void* ops, const void* run_ends,
+                                     int nruns, int m, int k, long long n,
+                                     int B, int ndigits, void* stream) {
+  const long long smem = block_smem_bytes(m, k, B, true);
+  if (smem > kSmemLimit || B % 128 || B <= 0 || n % B || nruns < 1 ||
+      ndigits < 1 || ndigits > kMaxDigits)
+    return cudaErrorInvalidValue;
+  return launch<true, true>(tables, in, parity, lacc, ops, run_ends, nruns,
+                            m, k, n, B, ndigits, smem, stream);
 }
 
 #ifdef CTT_K3_PHASES

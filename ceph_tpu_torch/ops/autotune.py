@@ -61,7 +61,7 @@ MEASURE_CALLS = 20
 # the cache's kernel-generation tag: bumped when K2/K3 change shape, so
 # winners measured under older kernels never satisfy a lookup (they
 # still seed the sweep's ordering)
-KERNEL_GEN = "cuda_k2k3r2"
+KERNEL_GEN = "cuda_k2k3r3"
 
 _lock = threading.Lock()
 

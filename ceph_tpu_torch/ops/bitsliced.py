@@ -15,23 +15,26 @@ Four hand-written CUDA kernels (csrc/) carry the EC data plane:
   each row a thread, at most one resident wave of blocks) and `k1_smem`
   (the packed tables' shared-memory layout) are the pure functions the
   wrapper passes in.
-* K2 `gf_encode_crc` (csrc/gf_encode_crc.cu) — parity plus the crc32c
-  linear part L of every block of all k+m shard rows, one launch.
-  Three entries with the contracts of Pallas kernels #1, #2 and #6:
-  `fused_hier_call` (L per 4*wb-byte sub-block, ceph_tpu's
-  `_fused_hier_call` :586), `gf_encode_with_crc_w32` (L per tile,
-  ceph_tpu's `gf_encode_with_crc_pallas_w32` :459) and
-  `gf_encode_with_crc` (the same on the byte layout, ceph_tpu's
-  `gf_encode_with_crc_pallas` :411; the write path's "bytes" branch).
+* K2 `gf_encode_crc` (csrc/gf_encode_crc_acc.cu, entry
+  ctt_gf_encode_crc) — parity plus the crc32c linear part L of every
+  block of all k+m shard rows, one launch.  Three entries with the
+  contracts of Pallas kernels #1, #2 and #6: `fused_hier_call` (L per
+  4*wb-byte sub-block, ceph_tpu's `_fused_hier_call` :586),
+  `gf_encode_with_crc_w32` (L per tile, ceph_tpu's
+  `gf_encode_with_crc_pallas_w32` :459) and `gf_encode_with_crc` (the
+  same on the byte layout, ceph_tpu's `gf_encode_with_crc_pallas` :411;
+  the write path's "bytes" branch).
 * K3 `gf_encode_crc_acc` (csrc/gf_encode_crc_acc.cu) — parity plus ONE
   L per (run, shard) of a drain's front-padded runs, one launch: the
   contract of Pallas kernel #4 (`_fused_hier_acc_call` :626), entry
   `fused_hier_acc_call`.  The write path's `combine="kernel"` point.
-  Its per-block body is its own: packed parity by nibble tables, a
-  crc table copy per lane with four interleaved chains, a fold of one
-  nibble-table matvec a lane and an advance by base-256 digits, with
-  `k3_smem` (layout), `k3_launch` (grid) and `k3_ops` (the operators)
-  the host's pure mirrors.
+  K2 and K3 share one per-block body: packed parity by nibble tables, a
+  crc table copy per lane with four interleaved chains and a fold of
+  one nibble-table matvec a lane; K3 then advances each block's L by
+  base-256 digits to its run's end, K2 writes it.  `k3_smem` and
+  `_crc_smem_bytes` (layouts; `k2_lane_tables` K2's branch by shape),
+  `k3_launch` (grid) and `k3_ops` (the operators) are the host's pure
+  mirrors.
 * K4 `gf_bitmatmul_stream` (csrc/gf_bitmatmul_stream.cu) — K1's
   function with the contraction (the k source rows) split into groups
   that separate threads reduce and XOR together: the counterpart of
@@ -353,22 +356,6 @@ def _cmat_w32(wt: int, device: torch.device) -> torch.Tensor:
         device=device, dtype=torch.float32)
 
 
-WARP_FOLD_LEVELS = 5         # operator levels of K2's warp crc fold
-
-
-@functools.lru_cache(maxsize=16)
-def _adv_ops(block: int, device: torch.device) -> torch.Tensor:
-    """(5, 32) uint32 columns of A_{(block/32) * 2^j}, j = 0 .. 4
-    (stored as int32), cached on the device: the warp-fold operators of
-    K2."""
-    from ..common import crc32c as _crc
-    piece = block // 32
-    ops = np.stack([_crc.advance_op(piece << j)
-                    for j in range(WARP_FOLD_LEVELS)])
-    return torch.from_numpy(np.ascontiguousarray(ops).view(np.int32)) \
-        .to(device)
-
-
 def _block_ls_plain(allsh: torch.Tensor, block: int) -> torch.Tensor:
     """(R, N) uint8 shard rows -> (R, N // block) int64 L-values, via
     the crc matrix of 4-byte words (tile_crc_bits_w32 over every
@@ -411,17 +398,6 @@ def _check_encode_crc(tables, chunks, block: int) -> None:
                          f"width multiple of the block ({n} % {block})")
 
 
-def _crc_smem_bytes(m: int, k: int, block: int) -> int:
-    """Shared memory of K2 (gf_common.cuh crc_smem_bytes); raises
-    when it exceeds one block's."""
-    smem = (m * k * 256 + 256 * 4 + WARP_FOLD_LEVELS * 32 * 4
-            + (k + m) * (block + 128))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gf_encode_crc: {smem} bytes of shared memory "
-                         "exceed one block's")
-    return smem
-
-
 def _encode_crc_launch(tables, chunks, block: int):
     m, k, n = _check_operands(tables, chunks)
     dev = chunks.device
@@ -432,10 +408,10 @@ def _encode_crc_launch(tables, chunks, block: int):
         return parity, lout, False
     from . import _build
     lib = _build.load()
-    adv = _adv_ops(block, dev)
+    ops = _k3_ops_tensor(block, dev)
     rc = lib.ctt_gf_encode_crc(tables.data_ptr(), chunks.data_ptr(),
                                parity.data_ptr(), lout.data_ptr(),
-                               adv.data_ptr(), m, k, n, block,
+                               ops.data_ptr(), m, k, n, block,
                                _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_encode_crc launch failed: CUDA error {rc}")
@@ -553,36 +529,73 @@ def k3_chains(block: int) -> int:
     return 4 if wpp % 4 == 0 else 2 if wpp % 2 == 0 else 1
 
 
+def _block_smem(m: int, k: int, block: int, lane_tables: bool = True) -> int:
+    """Bytes of shared memory of one block of K3's per-block body
+    (csrc/gf_encode_crc_acc.cu block_smem_bytes mirrors it): the nibble
+    tables of the packed parity (32 words for each group of four parity
+    rows and data row); with `lane_tables` the lane crc tables (32 KiB:
+    entry e of lane l at word 32*e + l) and the fold's nibble tables
+    (K3_NIB_WORDS words), else one crc table (1 KiB); k+m staged rows of
+    block + 128*k3_pad(block) bytes; and 16 bytes of run and distance."""
+    tables = 256 * 32 + K3_NIB_WORDS if lane_tables else 256
+    words = (-(-m // 4) * k * 32 + tables
+             + (k + m) * (block // 4 + 32 * k3_pad(block)))
+    return 4 * words + 16
+
+
+def _check_block(name: str, block: int) -> None:
+    if block <= 0 or block % 128:
+        raise ValueError(f"{name} needs a block that is a positive multiple "
+                         f"of 128, got {block}")
+
+
 @functools.lru_cache(maxsize=1024)
 def k3_smem(m: int, k: int, block: int) -> int:
-    """Bytes of shared memory of one K3 block (csrc/gf_encode_crc_acc.cu
-    k3_smem_bytes mirrors it): the nibble tables of the packed parity
-    (32 words for each group of four parity rows and data row), the lane
-    crc tables (32 KiB: entry e of lane l at word 32*e + l), the fold's
-    nibble tables (K3_NIB_WORDS words), k+m staged rows of block +
-    128*k3_pad(block) bytes, and 16 bytes of run and distance.  Raises
-    ValueError where the block is not a positive multiple of 128 or the
-    layout exceeds SMEM_LIMIT."""
-    if block <= 0 or block % 128:
-        raise ValueError(f"gf_encode_crc_acc needs a block that is a "
-                         f"positive multiple of 128, got {block}")
-    words = (-(-m // 4) * k * 32 + 256 * 32 + K3_NIB_WORDS
-             + (k + m) * (block // 4 + 32 * k3_pad(block)))
-    smem = 4 * words + 16
+    """Bytes of shared memory of one K3 block: _block_smem with the lane
+    tables.  Raises ValueError where the block is not a positive multiple
+    of 128 or the layout exceeds SMEM_LIMIT."""
+    _check_block("gf_encode_crc_acc", block)
+    smem = _block_smem(m, k, block)
     if smem > SMEM_LIMIT:
         raise ValueError(f"gf_encode_crc_acc: {smem} bytes of shared memory "
                          "exceed one block's")
     return smem
 
 
+def k2_lane_tables(m: int, k: int, block: int) -> bool:
+    """K2's branch, a pure function of the shape (ctt_gf_encode_crc
+    chooses the same): K3's layout with the lane crc tables and the
+    fold's nibble tables where it fits one block; else the narrow branch
+    (one crc table the lanes share, the fold's operators applied from
+    their columns), which k+m rows of 4-8 KiB need."""
+    return _block_smem(m, k, block) <= SMEM_LIMIT
+
+
 @functools.lru_cache(maxsize=1024)
-def k3_launch(n: int, block: int, k: int, m: int, sm_count: int) -> int:
-    """K3's grid for a width of n bytes (csrc/gf_encode_crc_acc.cu
-    computes the same): one thread block for each block-byte tile of the
-    width, at most one wave — sm_count times the blocks an SM keeps
-    resident by the launch bounds, threads and shared memory — the
-    blocks striding over the rest."""
-    smem = k3_smem(m, k, block) + BLOCK_SMEM_RESERVED
+def _crc_smem_bytes(m: int, k: int, block: int) -> int:
+    """Bytes of shared memory of one K2 block on its branch
+    (k2_lane_tables); raises ValueError only where no branch fits one
+    block (or the block is not a positive multiple of 128).
+    autotune._legal calls it."""
+    _check_block("gf_encode_crc", block)
+    smem = _block_smem(m, k, block, k2_lane_tables(m, k, block))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"gf_encode_crc: {smem} bytes of shared memory "
+                         "exceed one block's")
+    return smem
+
+
+@functools.lru_cache(maxsize=1024)
+def k3_launch(n: int, block: int, k: int, m: int, sm_count: int,
+              acc: bool = True) -> int:
+    """K3's grid for a width of n bytes, and with acc=False K2's
+    (csrc/gf_encode_crc_acc.cu computes the same): one thread block for
+    each block-byte tile of the width, at most one wave — sm_count times
+    the blocks an SM keeps resident by the launch bounds, threads and
+    shared memory (k3_smem, or K2's _crc_smem_bytes) — the blocks
+    striding over the rest."""
+    smem = (k3_smem if acc else _crc_smem_bytes)(m, k, block) \
+        + BLOCK_SMEM_RESERVED
     per_sm = max(1, min(K3_BLOCKS_PER_SM, MAX_THREADS_PER_SM // K3_THREADS,
                         SM_SMEM // smem))
     return max(1, min(n // block, per_sm * sm_count))

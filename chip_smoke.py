@@ -31,7 +31,9 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    default grid).  Then the K3 table: K3 on one 512 KiB run at B = 1,
    2 and 4 KiB, with its L zero-fill and without, and K2's hier entry
    at the same block as the run's control; the zero-fill alone; the two
-   K3 rows beside their times before K3's redesign.
+   K3 rows beside their times before K3's redesign.  Then the K2 table:
+   K2's hier entry at those blocks with its grid, and K2's three rows,
+   beside their times before K2's redesign, K3 as the control.
 2. Main path at combine="xla".  The port's ECBackend +
    LocalShardBackend over MemStore, plugin `torch`, k=8 m=3 cauchy (the
    ISA-L default profile), stripe unit 4096 B, dispatch-ahead depth 2,
@@ -86,8 +88,8 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
-Output: the card's name and power limit, the sweep tables, the kernels
-and K3 table JSON lines, the main paths', the benchmark's, the w32
+Output: the card's name and power limit, the sweep tables, the kernels,
+K3 table and K2 table JSON lines, the main paths', the benchmark's, the w32
 sweep's and the A/B's lines, and as the last line {"ok": true,
 "device": {"platform": "gpu", "kind": ..., "count": 1}} (the script
 drives one card).  Any failure raises and exits non-zero.
@@ -307,7 +309,8 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                    [(len(lost), run)], gf_bytes(len(lost), run),
                    gf_ops(len(lost), run), flush),
         kernel_row("fused_hier_call (K2, 2 KiB sub-blocks)",
-                   "csrc/gf_encode_crc.cu", "ceph_tpu/ops/bitsliced.py:523",
+                   "csrc/gf_encode_crc_acc.cu",
+                   "ceph_tpu/ops/bitsliced.py:523",
                    "fused_hier_call", "xla_write",
                    lambda: bs.fused_hier_call(enc, data, bs.FUSED_WB),
                    lambda: bs.fused_hier_call_plain(enc, data, bs.FUSED_WB),
@@ -315,7 +318,8 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                    gf_bytes(M, run) + (K + M) * (run // block) * 4,
                    gf_ops(M, run) + crc_ops(run), flush),
         kernel_row("gf_encode_with_crc_w32 (K2, 2 KiB tiles)",
-                   "csrc/gf_encode_crc.cu", "ceph_tpu/ops/bitsliced.py:437",
+                   "csrc/gf_encode_crc_acc.cu",
+                   "ceph_tpu/ops/bitsliced.py:437",
                    "gf_encode_with_crc_w32", "xla_write",
                    lambda: bs.gf_encode_with_crc_w32(enc, data_small,
                                                      bs.FUSED_TILE),
@@ -356,7 +360,8 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                    [(M, bench)], gf_bytes(M, bench), gf_ops(M, bench),
                    flush),
         kernel_row("gf_encode_with_crc (K2 byte entry, 2 KiB tiles)",
-                   "csrc/gf_encode_crc.cu", "ceph_tpu/ops/bitsliced.py:385",
+                   "csrc/gf_encode_crc_acc.cu",
+                   "ceph_tpu/ops/bitsliced.py:385",
                    "gf_encode_with_crc", "bytes_write",
                    lambda: bs.gf_encode_with_crc(enc, data, bs.FUSED_TILE),
                    lambda: bs.gf_encode_with_crc_plain(enc, data,
@@ -455,6 +460,52 @@ def k3_block_table(dev, bs, gf, rng, rows) -> dict:
     if len(earlier) != 2:
         raise AssertionError(f"K3 rows missing: {[r['name'] for r in rows]}")
     return {"fill_us": fill_us, "by_block": by_block, "rows": earlier}
+
+
+# Graph times of the K2 and K3 rows before K2's redesign (the final
+# chip_smoke.py run of K3's redesign on an NVIDIA H100 80GB HBM3 at
+# 700 W: PERF.md §6's rows and its K3 table's K2 control at B = 2 and
+# 4 KiB; 1 KiB not recorded), the `earlier` column of the K2 table
+K2_EARLIER_US = {"fused_hier_call (K2, 2 KiB sub-blocks)": 17.085,
+                 "gf_encode_with_crc_w32 (K2, 2 KiB tiles)": 13.936,
+                 "gf_encode_with_crc (K2 byte entry, 2 KiB tiles)": 17.014,
+                 "gf_encode_crc_acc (K3, one 512 KiB run)": 12.538,
+                 "gf_encode_crc_acc (K3, 2 runs, one odd-width)": 19.034}
+K2_EARLIER_BLOCK_US = {1024: None, 2048: 17.14, 4096: 21.77}
+
+
+def k2_block_table(bs, sms: int, k3_table: dict, rows) -> dict:
+    """K2 against its times before the redesign: its hier entry on one
+    8+3 x 512 KiB run at B = 1, 2 and 4 KiB (checked exactly against
+    its plain version and timed by k3_block_table) with its grid, and
+    its three kernel rows; K3 at the same blocks and K3's kernel rows
+    as this run's control."""
+    run = BIG // K
+    by_block = []
+    for r in k3_table["by_block"]:
+        row = {"block": r["block"], "wb": r["wb"],
+               "grid": bs.k3_launch(run, r["block"], K, M, sms, acc=False),
+               "us": r["k2_hier_us"],
+               "earlier_us": K2_EARLIER_BLOCK_US[r["block"]],
+               "k3_us": r["k3_us"], "k3_alone_us": r["k3_alone_us"],
+               "bound_us": r["bound_us"]}
+        by_block.append(row)
+        print(f"# k2_table B={row['block']:5d} grid={row['grid']:4d}  K2 "
+              f"hier {row['us']:8.3f} us (earlier {row['earlier_us']})  K3 "
+              f"alone {row['k3_alone_us']:8.3f} us", flush=True)
+    kernel_rows = [{"name": r["name"], "earlier_us": K2_EARLIER_US[r["name"]],
+                    "control": r["name"] in K3_EARLIER_US,
+                    "us": r["ms"] * 1e3, "single_us": r["single_ms"] * 1e3,
+                    "cold_us": r["cold_ms"] * 1e3,
+                    "bound_us": r["bound_ms"] * 1e3}
+                   for r in rows if r["name"] in K2_EARLIER_US]
+    if len(kernel_rows) != 5:
+        raise AssertionError(f"K2/K3 rows missing: "
+                             f"{[r['name'] for r in rows]}")
+    for r in kernel_rows:
+        print(f"# k2_table {r['name']}: {r['us']:.3f} us (earlier "
+              f"{r['earlier_us']})", flush=True)
+    return {"by_block": by_block, "rows": kernel_rows}
 
 
 def pin_point(cache_file, dev, point: dict) -> None:
@@ -1069,6 +1120,9 @@ def main() -> int:
         "torch", {"k": str(K), "m": str(M), "device": str(dev)})
     rows = phase_kernels(dev, bs, gf, rng, codec)
     k3_table = k3_block_table(dev, bs, gf, rng, rows)
+    k2_table = k2_block_table(
+        bs, torch.cuda.get_device_properties(dev).multi_processor_count,
+        k3_table, rows)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         pin_point(tmp / "pinned_xla.json", dev,
@@ -1098,6 +1152,7 @@ def main() -> int:
                                  f"phase ({phase})")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"k3_table": k3_table}), flush=True)
+    print(json.dumps({"k2_table": k2_table}), flush=True)
     print(json.dumps({"sweep": sweep}), flush=True)
     print(json.dumps({"main_path_xla": perf_xla}), flush=True)
     print(json.dumps({"main_path_kernel": perf_kernel,

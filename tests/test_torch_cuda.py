@@ -107,7 +107,17 @@ def test_k1_threshold_sides(cuda_device):
 
 
 @pytest.mark.parametrize("k,m,n,wb", [(8, 3, 1 << 19, 512), (4, 2, 8192, 128),
-                                      (10, 9, 4096, 32)])
+                                      (10, 9, 4096, 32),
+                                      (8, 3, 1 << 16, 256),     # B = 1 KiB
+                                      (8, 3, 1 << 17, 1024),    # B = 4 KiB
+                                      (12, 4, 6 << 11, 512),    # 16 rows
+                                      (4, 2, 2000 << 7, 32),    # > the grid
+                                      # the narrow branch: one group, two
+                                      # groups over more blocks than the
+                                      # grid, odd pieces
+                                      (20, 4, 3 << 13, 2048),
+                                      (18, 6, 140 << 13, 2048),
+                                      (28, 1, 2 * 7552, 1888)])
 def test_k2_entries_match_plain(cuda_device, k, m, n, wb):
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs
