@@ -1,14 +1,15 @@
 // Shared device helpers of the GF(2^8) kernels (gf_bitmatmul.cu,
 // gf_bitmatmul_stream.cu, gf_encode_crc_acc.cu).
 //
-// A GF(2^8) matrix apply out[i] = XOR_j c[i][j] * in[j] is done with
-// per-coefficient 256-byte product tables staged in shared memory: the
-// table of coefficient (i, j) lives at tab[(i*k + j)*256], so one
-// lookup multiplies one byte.  Output rows are processed in groups of
-// at most kMaxRows so every accumulator index is a compile-time
-// constant and stays in registers.  K1, K2 and K3 take packed tables
-// instead: one 32-bit lookup for four output rows, then one 4x4 byte
-// transpose a word (transpose4).
+// A GF(2^8) matrix apply out[i] = XOR_j c[i][j] * in[j] takes its
+// coefficients as per-coefficient 256-byte product tables: the table of
+// coefficient (i, j) lives at tab[(i*k + j)*256], so one lookup
+// multiplies one byte.  K1's branch for k > 227 looks them up directly
+// (gf_mac_word, rows in groups of at most kMaxRows so every accumulator
+// index is a compile-time constant and stays in registers).  K1 and K4
+// build packed tables from them instead (gf_packed.cuh), K2 and K3
+// nibble tables: one 32-bit lookup for four output rows, then one 4x4
+// byte transpose a word (transpose4).
 #pragma once
 
 #include <cstdint>
@@ -39,42 +40,6 @@ __device__ inline Span block_span(int64_t nvec, int64_t tile_vec,
     s.step = static_cast<int64_t>(gridDim.x) * per_pass;
   }
   return s;
-}
-
-// Blocks of a launch over nvec strips: ceil(nvec / tile_vec) with a
-// tile, else enough for one strip per `per_pass` slot, at most 4096.
-inline long long span_blocks(long long nvec, long long tile_vec,
-                             int per_pass) {
-  long long blocks = tile_vec > 0 ? (nvec + tile_vec - 1) / tile_vec
-                                  : (nvec + per_pass - 1) / per_pass;
-  if (tile_vec <= 0 && blocks > 4096) blocks = 4096;
-  return blocks < 1 ? 1 : blocks;
-}
-
-// 16 bytes at p as 4 little-endian words; `vec` rows are 16-byte
-// aligned and whole, otherwise only the first `rem` bytes are read.
-__device__ inline void load16(const uint8_t* p, int64_t rem, int vec,
-                              uint32_t (&w)[4]) {
-  if (vec) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
-    return;
-  }
-  w[0] = w[1] = w[2] = w[3] = 0;
-  for (int b = 0; b < 16 && b < rem; ++b)
-    w[b >> 2] |= static_cast<uint32_t>(p[b]) << (8 * (b & 3));
-}
-
-__device__ inline void store16(uint8_t* p, int64_t rem, int vec,
-                               uint32_t w0, uint32_t w1, uint32_t w2,
-                               uint32_t w3) {
-  if (vec) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(w0, w1, w2, w3);
-    return;
-  }
-  const uint32_t w[4] = {w0, w1, w2, w3};
-  for (int b = 0; b < 16 && b < rem; ++b)
-    p[b] = static_cast<uint8_t>(w[b >> 2] >> (8 * (b & 3)));
 }
 
 // Copy `nbytes` (a multiple of 16) from global to shared memory with

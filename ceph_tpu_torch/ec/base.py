@@ -7,6 +7,8 @@ contracts preserved:
   any chunk size and mask the ragged tail.
 * encode_prepare (reference ErasureCode.cc:151-186): pad the object with
   zeros to k*chunk_size and slice into k equal data chunks.
+* default minimum_to_decode (reference :103-137): if everything wanted is
+  available use it, else any k available chunks, full range each.
 * decode (reference :212): a dense (k+m, chunk_size) array with zeros
   in the holes, handed to the codec's decode_chunks.
 """
@@ -49,6 +51,26 @@ class ErasureCode(ErasureCodeInterface):
 
     def get_alignment(self) -> int:
         return SIMD_ALIGN
+
+    # -- default decode planning -------------------------------------------
+
+    def _minimum_to_decode_ids(self, want_to_read: set[int],
+                               available: set[int]) -> set[int]:
+        if want_to_read <= available:
+            return set(want_to_read)
+        if len(available) < self.k:
+            raise ErasureCodeError(
+                errno.EIO,
+                f"want {sorted(want_to_read)} but only "
+                f"{sorted(available)} available (k={self.k})")
+        return set(sorted(available)[: self.k])
+
+    def minimum_to_decode(self, want_to_read, available):
+        """{chunk: [(sub-chunk offset, count)]} to read for `want_to_read`
+        (reference ErasureCodeInterface.h:297)."""
+        ids = self._minimum_to_decode_ids(set(want_to_read), set(available))
+        sub = self.get_sub_chunk_count()
+        return {i: [(0, sub)] for i in ids}
 
     # -- encode plumbing ----------------------------------------------------
 

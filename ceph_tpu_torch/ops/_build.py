@@ -115,7 +115,7 @@ def load() -> ctypes.CDLL:
                                          i32, i64, i32, vp]
         lib.ctt_gf_bitmatmul.restype = i32
         lib.ctt_gf_bitmatmul_stream.argtypes = [vp, vp, vp, i32, i32, i64,
-                                                i64, i32, vp]
+                                                i64, i32, i32, i32, i64, vp]
         lib.ctt_gf_bitmatmul_stream.restype = i32
         lib.ctt_gf_encode_crc.argtypes = [vp, vp, vp, vp, vp, i32, i32,
                                           i64, i32, vp]

@@ -36,10 +36,14 @@ Four hand-written CUDA kernels (csrc/) carry the EC data plane:
   `k3_launch` (grid) and `k3_ops` (the operators) are the host's pure
   mirrors.
 * K4 `gf_bitmatmul_stream` (csrc/gf_bitmatmul_stream.cu) — K1's
-  function with the contraction (the k source rows) split into groups
-  that separate threads reduce and XOR together: the counterpart of
-  Pallas kernel #7 (`_make_gf_kernel_w32_stream` :245, reached through
-  `gf_bitmatmul_pallas_w32(stream=True)`), on the tools/w32_sweep path.
+  function with the contraction (the k source rows) split into passes
+  whose packed tables fit one block, the partials XOR-accumulated in
+  the block's own output columns: the counterpart of Pallas kernel #7
+  (`_make_gf_kernel_w32_stream` :245, reached through
+  `gf_bitmatmul_pallas_w32(stream=True)`).  It serves the matrices K1
+  refuses, the CLAY repair matrices of parallel/mesh.ClayRepairPlan
+  (64 x 176, 81 x 270), and the tools/w32_sweep path; `k4_plan` is its
+  launch's pure mirror.
 
 The coefficient operand of every kernel is the (r, k, 256) product
 table of the matrix (ec/gf.product_tables).  The kernels take bytes:
@@ -57,6 +61,7 @@ counts its kernel launches in a plain integer attribute (`.launches`).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -265,48 +270,105 @@ gf_bitmatmul.launches = 0
 
 
 # ----------------------------------------------------------------------------
-# K4: GF(2^8) matrix apply with a split contraction
+# K4: GF(2^8) matrix apply with the contraction split into passes
 # ----------------------------------------------------------------------------
 
-MAX_STREAM_GROUPS = 8        # K4's default G: at most 8 lanes per strip
+K4_THREADS = 256             # threads of a K4 block (K1's)
+K4_TABLE_BYTES_PER_ROW = 1024  # a group's packed table, per source row
+K4_MAX_GROUP_BLOCKS = 65535  # the grid's y extent
+
+
+class K4Plan(NamedTuple):
+    """K4's launch (csrc/gf_bitmatmul_stream.cu): bytes of each row a
+    thread takes, groups of four output rows a block owns, source rows a
+    pass, passes, blocks along the groups and along the columns, and the
+    block's shared memory (its groups' packed tables of one pass)."""
+    thread_bytes: int
+    groups_per_block: int
+    rows_per_pass: int
+    passes: int
+    group_blocks: int
+    col_blocks: int
+    smem: int
 
 
 def stream_groups(k: int) -> int:
-    """K4's contraction groups G for k source rows: the largest power of
-    two <= min(8, k // 2), at least 1, so every group owns at least two
-    rows (a group of one row spends nearly as many shuffles on the
-    reduction as lookups on its row) and the G lanes of a column strip
-    lie in one warp.  k=8 -> 4, k=4 and k=6 -> 2, k < 4 -> 1 (K1's work
-    split).  The rule depends on k alone; on the H100 the best G also
-    depends on the width (chip_smoke.py's k1_thread_bytes table, PERF.md)."""
-    g = 1
-    while 2 * g <= min(MAX_STREAM_GROUPS, k // 2):
-        g *= 2
-    return g
+    """K4's default passes for k source rows (the `groups` of #7's grid):
+    the fewest whose one group's packed tables fit one block, ceil(k /
+    227) — one pass up to k = 227, two at the CLAY repair matrix of k=8
+    m=3 d=10 (k = 270)."""
+    return max(1, -(-k // (SMEM_LIMIT // K4_TABLE_BYTES_PER_ROW)))
 
 
-def _check_groups(groups: int | None, k: int) -> int:
-    g = stream_groups(k) if groups is None else int(groups)
-    if g < 1 or g > 32 or g & (g - 1):
-        raise ValueError(f"groups must be a power of two in [1, 32], got {g}")
-    return g
+def _pass_rows(k: int, groups: int | None) -> int:
+    """Source rows a pass for `groups` passes (default stream_groups(k)):
+    ceil(k / groups), the passes contiguous and the last one shorter.
+    More passes than rows give one row a pass."""
+    g = stream_groups(k) if groups is None else groups
+    if isinstance(g, bool) or not isinstance(g, (int, np.integer)) or g < 1:
+        raise ValueError(f"groups (passes) must be a positive integer, "
+                         f"got {g!r}")
+    rows = max(1, -(-k // int(g)))
+    if rows * K4_TABLE_BYTES_PER_ROW > SMEM_LIMIT:
+        raise ValueError(f"{g} passes of {rows} source rows: one group's "
+                         "packed tables exceed the shared memory of one "
+                         "block")
+    return rows
+
+
+@functools.lru_cache(maxsize=1024)
+def k4_plan(r: int, k: int, n: int, sms: int, tile: int | None = None,
+            passes: int | None = None) -> K4Plan:
+    """K4's launch for (r, k) tables over n bytes a row, the host's pure
+    mirror of the kernel's layout.  Passes of _pass_rows(k, passes)
+    source rows; a block owns as many groups as fit one pass's tables in
+    one block (all ceil(r/4) where they fit: K1's layout).  A thread
+    takes 16 bytes where the row is 16-byte aligned and the blocks along
+    the groups give K1_WIDE_ROW_BYTES_PER_SM bytes an SM (K1's rule,
+    counted over every group block), else 4.  With a `tile` (bytes of
+    each row per block) the columns take ceil(n / tile) blocks; without,
+    enough for every thread-width of the row, at most what leaves one
+    resident wave (sm count times the blocks an SM holds by registers
+    and shared memory) to the group blocks, the blocks striding over the
+    rest."""
+    if r < 1 or k < 1 or n < 1:
+        raise ValueError(f"k4_plan needs r, k, n >= 1, got {(r, k, n)}")
+    rows = _pass_rows(k, passes)
+    groups = -(-r // 4)
+    table = rows * K4_TABLE_BYTES_PER_ROW
+    gpb = min(groups, SMEM_LIMIT // table)
+    group_blocks = -(-groups // gpb)
+    if group_blocks > K4_MAX_GROUP_BLOCKS:
+        raise ValueError(f"{r} output rows need {group_blocks} group blocks "
+                         f"(at most {K4_MAX_GROUP_BLOCKS})")
+    smem = gpb * table
+    wide = n % 16 == 0 and n * group_blocks >= K1_WIDE_ROW_BYTES_PER_SM * sms
+    tb = 16 if wide else 4
+    if tile:
+        col_blocks = -(-n // tile)
+    else:
+        per_sm = min(K1_BLOCKS_PER_SM[tb],
+                     SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
+        need = -(-n // (tb * K4_THREADS))
+        col_blocks = max(1, min(need, per_sm * sms // group_blocks))
+    return K4Plan(tb, gpb, rows, -(-k // rows), group_blocks, col_blocks,
+                  smem)
 
 
 def gf_bitmatmul_stream_plain(tables: torch.Tensor, chunks: torch.Tensor,
                               groups: int | None = None) -> torch.Tensor:
-    """Plain version of K4, in the TPU kernel's grid order: the partial
-    of each contraction group (source rows j with j % G == g, g = 0 ..
-    G-1) by K1's plain version, XOR-accumulated into the output one
-    group after another — another order than K1's plain version, which
-    contracts all rows at once."""
+    """Plain version of K4, in #7's grid order: the partial of each pass
+    (contiguous source rows, _pass_rows(k, groups) of them) by K1's plain
+    version, XOR-accumulated into the output one pass after another —
+    another order than K1's plain version, which contracts all rows at
+    once."""
     r, k, _ = tables.shape
-    g_n = _check_groups(groups, k)
+    rows = _pass_rows(k, groups)
     out = torch.zeros((r, chunks.shape[1]), dtype=torch.uint8,
                       device=chunks.device)
-    for g in range(min(g_n, k)):
-        rows = list(range(g, k, g_n))
-        out ^= gf_bitmatmul_plain(tables[:, rows].contiguous(),
-                                  chunks[rows].contiguous())
+    for jb in range(0, k, rows):
+        out ^= gf_bitmatmul_plain(tables[:, jb:jb + rows].contiguous(),
+                                  chunks[jb:jb + rows].contiguous())
     return out
 
 
@@ -314,28 +376,30 @@ def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
                         tile: int | None = None,
                         groups: int | None = None) -> torch.Tensor:
     """K4: K1's function, (r, k, 256) tables x (k, N) uint8 chunks ->
-    (r, N) uint8, with the k-row contraction split over `groups` lanes
-    per 16-byte column strip (default stream_groups(k)) whose partials
-    are XOR-reduced with warp shuffles.  The counterpart of ceph_tpu's
-    gf_bitmatmul_pallas_w32(stream=True); serves every k <= 32 and every
-    width, ragged too.  `tile` as for K1.  CUDA tensors launch
-    csrc/gf_bitmatmul_stream.cu; CPU tensors run
+    (r, N) uint8, with the k-row contraction split into `groups` passes
+    (#7's plane groups; default stream_groups(k), the fewest that fit)
+    whose partials are XOR-accumulated in the output.  The counterpart
+    of ceph_tpu's gf_bitmatmul_pallas_w32(stream=True); serves every r
+    and k — the CLAY repair matrices K1 refuses — and every width,
+    ragged too.  `tile` as for K1.  CUDA tensors launch
+    csrc/gf_bitmatmul_stream.cu with k4_plan's grid; CPU tensors run
     gf_bitmatmul_stream_plain."""
     r, k, n = _check_operands(tables, chunks)
     tile_b = _check_tile(tile, n)
-    g = _check_groups(groups, k)
+    _pass_rows(k, groups)
     dev = chunks.device
     if dev.type == "cpu":
-        return gf_bitmatmul_stream_plain(tables, chunks, g)
-    _check_tables_smem("gf_bitmatmul_stream", r, k)
+        return gf_bitmatmul_stream_plain(tables, chunks, groups)
     out = torch.empty((r, n), dtype=torch.uint8, device=dev)
-    if n == 0:
+    if n == 0 or r == 0:
         return out
+    plan = k4_plan(r, k, n, _sm_count(dev), tile_b or None, groups)
     from . import _build
     lib = _build.load()
-    rc = lib.ctt_gf_bitmatmul_stream(tables.data_ptr(), chunks.data_ptr(),
-                                     out.data_ptr(), r, k, n, tile_b, g,
-                                     _stream_handle(dev))
+    rc = lib.ctt_gf_bitmatmul_stream(
+        tables.data_ptr(), chunks.data_ptr(), out.data_ptr(), r, k, n,
+        tile_b, plan.thread_bytes, plan.groups_per_block,
+        plan.rows_per_pass, plan.col_blocks, _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_bitmatmul_stream launch failed: CUDA error "
                            f"{rc}")

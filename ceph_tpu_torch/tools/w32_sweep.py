@@ -5,7 +5,7 @@ Pallas encode kernel across per-chunk tiles for the all-planes kernel
 (stream=False, Pallas #3) and the streaming-accumulation kernel
 (stream=True, Pallas #7).  Here variant 0 is their counterpart K1
 (`gf_bitmatmul`) and variant 1 is K4 (`gf_bitmatmul_stream`, the
-contraction split over stream_groups(k) lanes per column strip); the
+contraction split into stream_groups(k) passes, one at k=8); the
 tile is the kernels' launch parameter: bytes of each row per thread
 block, so the grid is ceil(per_chunk / tile) blocks.
 

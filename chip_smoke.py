@@ -24,11 +24,13 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    GF(2^8) multiply-add per coefficient and column, one crc table step
    per shard byte) over the int8 rate (1,979 TOP/s), whichever is
    larger.  No single PyTorch call
-   computes these functions, so library_ms is null.  Nine rows: K1
+   computes these functions, so library_ms is null.  Eleven rows: K1
    (encode, decode, the device entry), K2's three entries (hier, w32
    flat, and the byte entry of Pallas #6 at 8+3 x 512 KiB), K3 (one run,
-   two runs) and K4 (Pallas #7's counterpart, 8 x 512 KiB -> 3, its
-   default grid).  Then the K3 table: K3 on one 512 KiB run at B = 1,
+   two runs) and K4 (Pallas #7's counterpart: 8 x 512 KiB -> 3 at one
+   pass, and the CLAY repair matrices of phase G, 64 x 176 over 32
+   objects' 8 KiB sub-chunks and 81 x 270 over 32 x 6473 B at two
+   passes).  Then the K3 table: K3 on one 512 KiB run at B = 1,
    2 and 4 KiB, with its L zero-fill and without, and K2's hier entry
    at the same block as the run's control; the zero-fill alone; the two
    K3 rows beside their times before K3's redesign.  Then the K2 table:
@@ -80,19 +82,27 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    (4 MiB a chunk), K1 and K4 over tiles of 64 KiB - 4 MiB of each row
    per block, every configuration exact before it is timed.  Then K1 at
    4 and 16 bytes of each row a thread and at k1_launch's pick (printed
-   for each width), and the unchanged K4 (G = 1, 2, 4, 8 lanes a strip)
-   as the same run's yardstick, at their default grids over rows of
-   16 KiB - 4 MiB, checked and timed as the kernel rows are.
-8. A/B (phase F): the native CPU library must have built; then
+   for each width), and K4 forced to 1, 2, 4 and 8 passes of the 8
+   source rows, at their default grids over rows of 16 KiB - 4 MiB,
+   checked and timed as the kernel rows are.
+8. CLAY repair (phase G): for k=8 m=4 d=11 (BASELINE.json) and k=8
+   m=3 d=10, 32 objects of 4 MiB encoded on the host; for every lost
+   chunk (12 and 11) a ClayRepairPlan and one apply_batch over the 32
+   objects' helper repair planes (one K4 launch), every rebuilt chunk
+   equal to the lost chunk, the batch to K4's plain version on the card
+   and one object a chunk to codec.repair on the host; launches, wall
+   time and GB/s of rebuilt bytes.  Then K4 at the batch shape at 1x,
+   2x and 4x its fewest passes.
+9. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels,
-K3 table and K2 table JSON lines, the main paths', the benchmark's, the w32
-sweep's and the A/B's lines, and as the last line {"ok": true,
-"device": {"platform": "gpu", "kind": ..., "count": 1}} (the script
-drives one card).  Any failure raises and exits non-zero.
+K3 table and K2 table JSON lines, the main paths', the benchmark's, the
+w32 sweep's, the CLAY repair's and the A/B's lines, and as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
+(the script drives one card).  Any failure raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -121,6 +131,10 @@ N_BIG_XLA, N_BIG_ACC, N_BIG_PICK, N_BIG_BYTES = 32, 64, 16, 16
 N_SMALL, N_RMW = 16, 8
 RMW_LEN = 16 << 10
 SEED = 20261016
+# CLAY profiles of phase G: BASELINE.json's k=8 m=4 d=11 and the k=8 m=3
+# d=10 geometry of the ISA-L default profile's (k, m)
+CLAY_PROFILES = {"k8m4d11": (8, 4, 11), "k8m3d10": (8, 3, 10)}
+N_CLAY_OBJECTS = 32
 SPIN_CYCLES = 1_000_000         # ~0.5 ms of card clock
 
 
@@ -377,8 +391,147 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                    lambda: bs.gf_bitmatmul_stream_plain(enc, data),
                    [(M, run)], gf_bytes(M, run), gf_ops(M, run), flush),
     ]
+    for name, (ck, cm, cd) in CLAY_PROFILES.items():
+        codec_c = clay_codec(ck, cm, cd)
+        mat = codec_c.repair_matrix(0)
+        r, j = mat.shape
+        n = N_CLAY_OBJECTS * clay_sub_size(codec_c)
+        tab = bs.tables_tensor(gf.product_tables(mat), dev)
+        rows_c = torch.from_numpy(
+            rng.integers(0, 256, (j, n), dtype=np.uint8)).to(dev)
+        passes = bs.k4_plan(r, j, n, torch.cuda.get_device_properties(
+            dev).multi_processor_count).passes
+        rows.append(kernel_row(
+            f"gf_bitmatmul_stream (K4, CLAY {name}: {r} x {j} over "
+            f"{N_CLAY_OBJECTS} x {n // N_CLAY_OBJECTS} B, {passes} "
+            f"pass{'es' if passes > 1 else ''})",
+            "csrc/gf_bitmatmul_stream.cu", "ceph_tpu/ops/bitsliced.py:245",
+            "gf_bitmatmul_stream", "clay_repair",
+            lambda tab=tab, x=rows_c: bs.gf_bitmatmul_stream(tab, x),
+            lambda tab=tab, x=rows_c: bs.gf_bitmatmul_stream_plain(tab, x),
+            [(r, n)], j * n + r * n + r * j * 256, 2 * r * j * n, flush))
     del flush
     return rows
+
+
+def clay_codec(k: int, m: int, d: int):
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    return ErasureCodePluginRegistry.instance().factory(
+        "clay", {"k": str(k), "m": str(m), "d": str(d)})
+
+
+def clay_sub_size(codec) -> int:
+    """Bytes a sub-chunk of a 4 MiB object: 8192 at k=8 m=4 d=11, 6473
+    at k=8 m=3 d=10 (its chunk aligned to 81 sub-chunks)."""
+    return codec.get_chunk_size(BIG) // codec.get_sub_chunk_count()
+
+
+def phase_clay_repair(dev, rng) -> tuple[dict, dict]:
+    """Phase G: CLAY single-chunk repair on the card.  For each CLAY
+    profile of BASELINE.json's configs and k=8 m=3 d=10, 32 objects of
+    4 MiB are encoded on the host; for every lost chunk a ClayRepairPlan
+    is built and one apply_batch (one K4 launch) rebuilds the chunk of
+    all 32 objects from their helpers' repair planes.  Every rebuilt
+    chunk must equal the object's lost chunk, the batch K4's plain
+    version on the card, and one object a lost chunk codec.repair on the
+    host.  Returns (launch counts of the repairs, the report).  Then K4
+    at each profile's batch shape at more passes than it needs (the
+    multi-pass path at these shapes), checked and timed as the kernel
+    rows are."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.parallel import ClayRepairPlan
+
+    report = {}
+    counts = {}
+    for name, (ck, cm, cd) in CLAY_PROFILES.items():
+        codec = clay_codec(ck, cm, cd)
+        n_chunks = ck + cm
+        sub = codec.get_sub_chunk_count()
+        s = clay_sub_size(codec)
+        t0 = time.perf_counter()
+        encs = [codec.encode(set(range(n_chunks)), rng.bytes(BIG))
+                for _ in range(N_CLAY_OBJECTS)]
+        t_encode = time.perf_counter() - t0
+        if len(encs[0][0]) != sub * s:
+            raise AssertionError(f"{name}: chunk of {len(encs[0][0])} B")
+        plans, batches = [], []
+        for lost in range(n_chunks):
+            plan = ClayRepairPlan.build(codec, lost, device=dev)
+            planes = codec.repair_planes(lost)
+            batches.append([codec.repair_rows(lost, {
+                ch: np.asarray(e[ch]).reshape(sub, s)[planes]
+                for ch in plan.helper_ids}) for e in encs])
+            plan.tables_tensor()
+            plans.append(plan)
+        torch.cuda.synchronize()
+        bs.reset_launch_counts()
+        per_chunk_s = []
+        outs = []
+        for plan, batch in zip(plans, batches):
+            t0 = time.perf_counter()
+            outs.append(plan.apply_batch(batch))
+            per_chunk_s.append(time.perf_counter() - t0)
+        counts[name] = bs.launch_counts()
+        if counts[name]["gf_bitmatmul_stream"] != n_chunks:
+            raise AssertionError(f"{name}: {counts[name]} launches for "
+                                 f"{n_chunks} batches")
+        for lost, (plan, batch, out) in enumerate(zip(plans, batches, outs)):
+            for i, e in enumerate(encs):
+                if not np.array_equal(out[i].reshape(-1), e[lost]):
+                    raise AssertionError(f"{name}: chunk {lost} of object "
+                                         f"{i} rebuilt wrong")
+            i = lost % N_CLAY_OBJECTS
+            planes = codec.repair_planes(lost)
+            host = codec.repair(lost, {
+                ch: np.asarray(encs[i][ch]).reshape(sub, s)[planes]
+                for ch in plan.helper_ids}, s)
+            if not np.array_equal(out[i].reshape(-1), host):
+                raise AssertionError(f"{name}: chunk {lost} of object {i} "
+                                     "differs from codec.repair")
+            big = torch.from_numpy(np.concatenate(batch, axis=1)).to(dev)
+            plain = bs.gf_bitmatmul_stream_plain(plan.tables_tensor(), big)
+            if not np.array_equal(np.concatenate(out, axis=1),
+                                  plain.cpu().numpy()):
+                raise AssertionError(f"{name}: chunk {lost} batch differs "
+                                     "from K4's plain version")
+        rebuilt = n_chunks * N_CLAY_OBJECTS * sub * s
+        wall = sum(per_chunk_s)
+        report[name] = {
+            "profile": {"k": ck, "m": cm, "d": cd},
+            "matrix": [plans[0].out_rows, plans[0].in_rows],
+            "sub_chunk_bytes": s, "objects": N_CLAY_OBJECTS,
+            "lost_chunks": n_chunks,
+            "launches": counts[name]["gf_bitmatmul_stream"],
+            "encode_s": t_encode, "repair_wall_s": wall,
+            "per_chunk_s": per_chunk_s, "rebuilt_bytes": rebuilt,
+            "rebuilt_GBps": rebuilt / wall / 1e9,
+            "host_checked_objects": n_chunks}
+        print(f"# clay_repair {name} {plans[0].out_rows} x "
+              f"{plans[0].in_rows}: {n_chunks} lost chunks x "
+              f"{N_CLAY_OBJECTS} objects, {wall:.4f} s, "
+              f"{rebuilt / wall / 1e9:.3f} GB/s rebuilt", flush=True)
+        # K4 at the batch's shape at more passes than it needs
+        plan = plans[0]
+        big = torch.from_numpy(np.concatenate(batches[0], axis=1)).to(dev)
+        tab = plan.tables_tensor()
+        want = bs.gf_bitmatmul_stream_plain(tab, big)
+        fewest = bs.stream_groups(plan.in_rows)
+        passes_table = []
+        for p in sorted({fewest, 2 * fewest, 4 * fewest}):
+            def fn(p=p):
+                return bs.gf_bitmatmul_stream(tab, big, groups=p)
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"{name}: K4 at {p} passes differs")
+            us = graph_event_ms(fn) * 1e3
+            passes_table.append({"passes": p, "us": us})
+            print(f"# k4_clay_passes {name} passes={p}  {us:9.3f} us",
+                  flush=True)
+        report[name]["k4_passes"] = passes_table
+    merged = {}
+    for c in counts.values():
+        for key, v in c.items():
+            merged[key] = merged.get(key, 0) + v
+    return merged, report
 
 
 # Graph times of the two K3 rows before K3's redesign (PERF.md §6:
@@ -856,10 +1009,10 @@ def phase_w32_sweep() -> tuple[dict, list[dict]]:
 
 def k1_thread_bytes_table(dev, rng) -> list[dict]:
     """K1 at 4 and 16 bytes of each row a thread and at k1_launch's pick,
-    and the unchanged K4 at G = 1, 2, 4, 8 lanes a strip as the yardstick
-    of the same run, over widths of 16 KiB - 4 MiB a row (8 -> 3, the
-    write path's Cauchy code; 256 and 512 KiB sit either side of
-    k1_launch's threshold), each at its default grid.  Each entry
+    and K4 forced to 1, 2, 4 and 8 passes of the 8 source rows (the
+    multi-pass path at #7's own shape), over widths of 16 KiB - 4 MiB a
+    row (8 -> 3, the write path's Cauchy code; 256 and 512 KiB sit
+    either side of k1_launch's threshold), each at its default grid.  Each entry
     checked against K1's plain version, then timed as the kernel rows
     are (graph replays)."""
     from ceph_tpu_torch.ec import gf
@@ -879,7 +1032,7 @@ def k1_thread_bytes_table(dev, rng) -> list[dict]:
             enc, data, thread_bytes=tb)) for tb in (4, 16)]
         variants.append(("K1 pick", pick[0],
                          lambda: bs.gf_bitmatmul(enc, data)))
-        variants += [(f"K4 G={g}", None, lambda g=g: bs.gf_bitmatmul_stream(
+        variants += [(f"K4 P={g}", None, lambda g=g: bs.gf_bitmatmul_stream(
             enc, data, groups=g)) for g in (1, 2, 4, 8)]
         for name, tb, fn in variants:
             if not torch.equal(fn(), want):
@@ -1140,6 +1293,7 @@ def main() -> int:
             phase_benchmark()
         counts["w32_sweep"], w32_rows = phase_w32_sweep()
         k1_table = k1_thread_bytes_table(dev, rng)
+        counts["clay_repair"], clay = phase_clay_repair(dev, rng)
         ab = phase_ab()
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
@@ -1162,6 +1316,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"w32_sweep": w32_rows, "k1_thread_bytes": k1_table}),
           flush=True)
+    print(json.dumps({"clay_repair": clay}), flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

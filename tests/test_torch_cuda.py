@@ -136,18 +136,31 @@ def test_k2_entries_match_plain(cuda_device, k, m, n, wb):
 
 
 @pytest.mark.parametrize("k,r,n,tile,groups", [
-    (8, 3, 1 << 19, None, None),           # the sweep's default G = 4
+    (8, 3, 1 << 19, None, None),           # the sweep's shape, one pass
     (8, 3, 1 << 19, 65536, None),
     (8, 3, 1 << 20, 1 << 20, None),        # one block
     (8, 2, 4096 + 16, None, None),
-    (4, 2, 1001, None, None),              # ragged, G = 2
+    (4, 2, 1001, None, None),              # ragged, 4 bytes a thread
     (6, 3, 333, 256, None),                # k the TPU kernel refused
-    (10, 4, 5000, None, None),             # G = 4 does not divide k
-    (5, 11, 333, None, 8),                 # two row groups of 8 and 3
+    (10, 4, 5000, None, 4),                # passes of 3, 3, 3 and 1 rows
+    (5, 11, 333, None, 8),                 # one row a pass, three groups
     (32, 1, 4096, None, 32),
-    (3, 3, 100, 16, None),                 # G = 1
-    (8, 3, 0, None, None)])
+    (3, 3, 100, 16, None),
+    (8, 3, 0, None, None),                 # a zero width
+    (8, 3, 1 << 19, None, 1),              # forced passes at #7's shape
+    (8, 3, 1 << 19, None, 2),
+    (8, 3, 1 << 19, None, 4),
+    (8, 3, 1 << 19, None, 8),
+    (176, 64, 32 * 8192, None, None),      # CLAY k=8 m=4 d=11, 32 objects
+    (176, 64, 8192, None, None),           # one object
+    (270, 81, 6473, None, None),           # CLAY k=8 m=3 d=10, ragged
+    (270, 81, 32 * 6473, None, None),      # two passes, 32 objects
+    (270, 81, 32 * 6473, None, 5),
+    (176, 64, 0, None, None)])
 def test_k4_matches_plain_and_k1(cuda_device, k, r, n, tile, groups):
+    """K4 on the card against its plain version (the same passes), the
+    host GF(2^8) apply where it is quick, and K1 where K1 serves the
+    shape (its product tables fit one block)."""
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs
     rng = np.random.default_rng(k * 7 + r + n)
@@ -157,13 +170,43 @@ def test_k4_matches_plain_and_k1(cuda_device, k, r, n, tile, groups):
     dev = torch.from_numpy(chunks).to(cuda_device)
     before = bs.gf_bitmatmul_stream.launches
     got = bs.gf_bitmatmul_stream(tab, dev, tile=tile, groups=groups)
-    k1 = bs.gf_bitmatmul(tab, dev, tile=tile)
     torch.cuda.synchronize()
     assert bs.gf_bitmatmul_stream.launches == before + (n > 0)
     want = bs.gf_bitmatmul_stream_plain(tab, dev, groups).cpu().numpy()
     np.testing.assert_array_equal(got.cpu().numpy(), want)
-    np.testing.assert_array_equal(k1.cpu().numpy(), want)
-    np.testing.assert_array_equal(want, gf.gf_matvec(mat, chunks))
+    if r * k * 256 <= bs.SMEM_LIMIT:
+        k1 = bs.gf_bitmatmul(tab, dev, tile=tile)
+        np.testing.assert_array_equal(k1.cpu().numpy(), want)
+    if r * k * n <= 1 << 25:
+        np.testing.assert_array_equal(want, gf.gf_matvec(mat, chunks))
+
+
+def test_clay_repair_plan_on_card_matches_host(cuda_device):
+    """ClayRepairPlan.apply_batch on the card (K4) against codec.repair
+    on the host for every lost chunk of k=8 m=4 d=11, 3 objects of 8 KiB
+    sub-chunks, one K4 launch a batch."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.parallel import ClayRepairPlan
+    codec = ErasureCodePluginRegistry.instance().factory(
+        "clay", {"k": "8", "m": "4", "d": "11"})
+    sub, s = codec.get_sub_chunk_count(), 8192
+    rng = np.random.default_rng(11)
+    encs = [codec.encode(set(range(12)), rng.integers(
+        0, 256, 8 * sub * s, dtype=np.uint8).tobytes()) for _ in range(3)]
+    for lost in range(12):
+        plan = ClayRepairPlan.build(codec, lost, device=cuda_device)
+        planes = codec.repair_planes(lost)
+        helpers = [{ch: np.asarray(e[ch]).reshape(sub, s)[planes]
+                    for ch in plan.helper_ids} for e in encs]
+        before = bs.gf_bitmatmul_stream.launches
+        outs = plan.apply_batch([codec.repair_rows(lost, h)
+                                 for h in helpers])
+        assert bs.gf_bitmatmul_stream.launches == before + 1
+        for e, h, out in zip(encs, helpers, outs):
+            np.testing.assert_array_equal(out.reshape(-1), e[lost])
+        np.testing.assert_array_equal(
+            outs[0].reshape(-1), codec.repair(lost, helpers[0], s))
 
 
 def test_k2_byte_entry_matches_plain(cuda_device):

@@ -1,7 +1,9 @@
 """K4 `gf_bitmatmul_stream` (the counterpart of Pallas kernel #7,
-`_make_gf_kernel_w32_stream`) on the CPU, i.e. its plain version,
-against ceph_tpu's streaming kernel in interpret mode, and the port's
-tools/w32_sweep on the CPU.  Bytes must match exactly."""
+`_make_gf_kernel_w32_stream`) on the CPU, i.e. its plain version (the
+contraction split into passes of contiguous source rows, the partials
+XOR-accumulated in pass order), against ceph_tpu's streaming kernel in
+interpret mode, and the port's tools/w32_sweep on the CPU.  Bytes must
+match exactly."""
 
 import contextlib
 import io
@@ -64,9 +66,27 @@ def test_stream_serves_k_the_tpu_kernel_refuses(n):
     np.testing.assert_array_equal(got.numpy(), jgf.gf_matvec(mat, chunks))
 
 
+@pytest.mark.parametrize("groups", [1, 2, 4, 8])
+def test_stream_passes_match_jax_streaming_kernel(groups):
+    """K4 forced to 1, 2, 4 and 8 passes at #7's own shape (k=8, the
+    JAX kernel's 8 // g plane-group steps) against the JAX streaming
+    kernel in interpret mode."""
+    n = 4096
+    mat, chunks, tab = _operands(8, 3, n, 40 + groups)
+    words = jnp.asarray(chunks.view("<u4").view(np.int32))
+    bitmat32 = jnp.asarray(jbs._w32_bitmat(mat), dtype=jnp.int8)
+    out = jbs.gf_bitmatmul_pallas_w32(bitmat32, words, 3, tile=n,
+                                      interpret=True, stream=True)
+    want = np.asarray(out).view("<u4").view(np.uint8).reshape(3, n)
+    got = bs.gf_bitmatmul_stream(tab, torch.from_numpy(chunks),
+                                 groups=groups)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("groups", [1, 2, 4, 8, 16, 32])
 def test_stream_groups_all_agree_with_k1(groups):
-    """Every group count, dividing k or not, gives K1's bytes."""
+    """Every pass count (`groups`), dividing k or not, more passes than
+    rows too, gives K1's bytes."""
     mat, chunks, tab = _operands(10, 4, 777, groups)
     data = torch.from_numpy(chunks)
     got = bs.gf_bitmatmul_stream(tab, data, groups=groups)
@@ -74,13 +94,24 @@ def test_stream_groups_all_agree_with_k1(groups):
 
 
 def test_stream_groups_rule_and_bad_launch_parameters():
+    """stream_groups(k) is the fewest passes whose one group's packed
+    tables (1 KiB a source row) fit one block: one up to k = 227, two
+    at the k=8 m=3 d=10 CLAY repair matrix (k = 270)."""
     assert [bs.stream_groups(k) for k in (1, 2, 3, 4, 6, 8, 10, 16, 32)] == \
-        [1, 1, 1, 2, 2, 4, 4, 8, 8]
+        [1, 1, 1, 1, 1, 1, 1, 1, 1]
+    assert [bs.stream_groups(k) for k in (176, 227, 228, 270, 454, 455)] \
+        == [1, 1, 2, 2, 2, 3]
     _, chunks, tab = _operands(8, 3, 256, 1)
     data = torch.from_numpy(chunks)
-    for bad in (3, 0, 64):
-        with pytest.raises(ValueError, match="power of two"):
+    for bad in (0, -1, 2.0, True):
+        with pytest.raises(ValueError, match="positive integer"):
             bs.gf_bitmatmul_stream(tab, data, groups=bad)
+    _, wide, wide_tab = _operands(300, 1, 16, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        bs.gf_bitmatmul_stream(wide_tab, torch.from_numpy(wide), groups=1)
+    assert torch.equal(
+        bs.gf_bitmatmul_stream(wide_tab, torch.from_numpy(wide)),
+        bs.gf_bitmatmul_plain(wide_tab, torch.from_numpy(wide)))
     for entry in (bs.gf_bitmatmul, bs.gf_bitmatmul_stream):
         with pytest.raises(ValueError, match="multiple of 16"):
             entry(tab, data, tile=100)
