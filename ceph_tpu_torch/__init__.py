@@ -8,12 +8,19 @@ parity and crc32c kernels are hand-written CUDA for Hopper
 kernel keeps a plain PyTorch version beside it, which serves tensors
 that lie on the CPU.
 
-Layer map of this slice:
-  common/   crc32c (numpy tables), small helpers
-  ec/       codec interface, GF(2^8) matrices, registry, the `torch` plugin
-  ops/      crc32c-as-linear-algebra helpers, kernel wrappers, nvcc build
-  osd/      ECBackend write/read pipeline, ECUtil, ECTransaction, PG log
+Layer map:
+  common/   crc32c (numpy tables), perf counters, native CPU library,
+            small helpers
+  ec/       codec interface, GF(2^8) matrices, registry, plugins (`torch`
+            on the card; `isa`, `jerasure`, `example`, `clay`, `lrc`,
+            `shec` on the host)
+  ops/      crc32c-as-linear-algebra helpers, kernel wrappers, nvcc build,
+            the operating-point autotuner, the launch flight recorder
+  parallel/ the per-host launch queue, the CLAY repair plan (K4)
+  osd/      ECBackend write/read/recovery pipeline, ECUtil, ECTransaction,
+            PG log
   store/    ObjectStore contract + MemStore
+  tools/    ec_benchmark and the kernel sweeps
   csrc/     CUDA C++ kernels (sm_90a)
 
 Entry points run on the card unless the caller asks for the CPU

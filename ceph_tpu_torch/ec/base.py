@@ -11,6 +11,7 @@ contracts preserved:
   available use it, else any k available chunks, full range each.
 * decode (reference :212): a dense (k+m, chunk_size) array with zeros
   in the holes, handed to the codec's decode_chunks.
+* chunk remapping via the `mapping=` profile key (reference :274).
 """
 
 from __future__ import annotations
@@ -27,14 +28,33 @@ SIMD_ALIGN = 64  # reference uses 32 (ErasureCode.cc:42); 64 also serves cacheli
 class ErasureCode(ErasureCodeInterface):
     k: int = 0
     m: int = 0
+    # Locality codes (LRC/SHEC) can decode from fewer than k chunks when
+    # the right ones are present; they relax the availability precheck.
+    ALLOW_PARTIAL_DECODE = False
 
     def __init__(self) -> None:
+        self.chunk_mapping: list[int] = []
         self.profile: Profile | None = None
 
     # -- init plumbing ------------------------------------------------------
 
     def init(self, profile: Profile) -> None:
         self.profile = profile
+        mapping = profile.get("mapping")
+        if mapping:
+            self.parse_chunk_mapping(mapping)
+
+    def parse_chunk_mapping(self, mapping: str) -> None:
+        """Parse a 'DDD_D...' style remap string: position p of the string
+        holds chunk c in order of D occurrences (reference
+        ErasureCode.cc:274 chunk_index/chunk_mapping)."""
+        n = self.get_chunk_count()
+        positions = [i for i, ch in enumerate(mapping) if ch == "D"]
+        if len(positions) != n:
+            raise ErasureCodeError(
+                errno.EINVAL,
+                f"mapping {mapping!r} has {len(positions)} D's, need {n}")
+        self.chunk_mapping = positions
 
     # -- geometry -----------------------------------------------------------
 
@@ -51,6 +71,12 @@ class ErasureCode(ErasureCodeInterface):
 
     def get_alignment(self) -> int:
         return SIMD_ALIGN
+
+    def get_chunk_mapping(self) -> list[int]:
+        return list(self.chunk_mapping)
+
+    def chunk_index(self, i: int) -> int:
+        return self.chunk_mapping[i] if self.chunk_mapping else i
 
     # -- default decode planning -------------------------------------------
 
@@ -71,6 +97,10 @@ class ErasureCode(ErasureCodeInterface):
         ids = self._minimum_to_decode_ids(set(want_to_read), set(available))
         sub = self.get_sub_chunk_count()
         return {i: [(0, sub)] for i in ids}
+
+    def minimum_to_decode_with_cost(self, want_to_read, available):
+        # Default ignores cost (reference ErasureCode.cc:139-149).
+        return set(self.minimum_to_decode(set(want_to_read), set(available)))
 
     # -- encode plumbing ----------------------------------------------------
 
@@ -115,7 +145,8 @@ class ErasureCode(ErasureCodeInterface):
         dense, erasures = self._decode_prepare(chunks, chunk_size)
         if not erasures or not (set(want_to_read) - set(chunks)):
             return {i: dense[i] for i in want_to_read}
-        if self.get_chunk_count() - len(erasures) < self.k:
+        if not self.ALLOW_PARTIAL_DECODE and \
+                self.get_chunk_count() - len(erasures) < self.k:
             raise ErasureCodeError(
                 errno.EIO, f"cannot decode: {len(erasures)} erasures > m={self.m}")
         decoded = self.decode_chunks(dense, erasures)
@@ -126,3 +157,17 @@ class ErasureCode(ErasureCodeInterface):
         """Reconstruct erased rows of the dense (k+m, chunk_size) array.
         Subclasses implement. (reference ErasureCodeInterface.h:411)"""
         raise NotImplementedError
+
+    # -- CRUSH --------------------------------------------------------------
+
+    def create_rule(self, name: str, crush) -> int:
+        """Build an `indep` CRUSH rule choosing k+m independent devices
+        (reference ErasureCode.cc:64-83) on a map with the reference's
+        add_simple_rule."""
+        failure_domain = (self.profile.get("crush-failure-domain", "host")
+                          if self.profile else "host")
+        root = (self.profile.get("crush-root", "default")
+                if self.profile else "default")
+        return crush.add_simple_rule(
+            name, root, failure_domain, num_rep=self.get_chunk_count(),
+            rule_mode="indep")

@@ -2,9 +2,9 @@
 
 The port's copy of ceph_tpu/ec/plugins/ec_clay.py (numpy and the port's
 own ec/ modules; its encode, decode and repair run on the host, as in
-the JAX package).  The one change: the GF(2^8) system solve it took
-from ec_shec is copied here as `_gf_solve`.  The device apply of its
-repair matrix is parallel/mesh.ClayRepairPlan (K4).
+the JAX package), taking its GF(2^8) system solve from the port's
+ec_shec as the reference does.  The device apply of its repair matrix
+is parallel/mesh.ClayRepairPlan (K4).
 
 Fills the role of reference src/erasure-code/clay/ErasureCodeClay.{h,cc}
 (profile k, m, d): an MDS code with *sub-chunked* chunks whose
@@ -62,35 +62,6 @@ from ..registry import ErasureCodePlugin, ErasureCodePluginRegistry
 __erasure_code_version__ = ErasureCodePlugin.abi_version
 
 GAMMA = 2  # coupling constant; needs gamma^2 != 1 in GF(2^8)
-
-
-def _gf_solve(a: np.ndarray, rhs: np.ndarray) -> np.ndarray | None:
-    """Solve a (rows x unknowns) GF system for each byte column (copied
-    from ceph_tpu/ec/plugins/ec_shec.py ErasureCodeShec._gf_solve)."""
-    rows, unknowns = a.shape
-    aug_a = a.copy()
-    aug_r = rhs.copy()
-    lut_all = gf.mul_table()
-    rank = 0
-    for col in range(unknowns):
-        piv = next((r for r in range(rank, rows) if aug_a[r, col]), None)
-        if piv is None:
-            return None
-        aug_a[[rank, piv]] = aug_a[[piv, rank]]
-        aug_r[[rank, piv]] = aug_r[[piv, rank]]
-        inv = gf.gf_inv(int(aug_a[rank, col]))
-        lut = lut_all[inv]
-        aug_a[rank] = lut[aug_a[rank]]
-        aug_r[rank] = lut[aug_r[rank]]
-        for r in range(rows):
-            if r != rank and aug_a[r, col]:
-                c = int(aug_a[r, col])
-                aug_a[r] ^= lut_all[c][aug_a[rank]]
-                aug_r[r] ^= lut_all[c][aug_r[rank]]
-        rank += 1
-        if rank == unknowns:
-            break
-    return aug_r[:unknowns]
 
 
 class ErasureCodeClay(ErasureCode):
@@ -201,7 +172,9 @@ class ErasureCodeClay(ErasureCode):
                 h = int(self.H[r, j])
                 if h:
                     rhs[r] ^= lut[h][u_known[j]]
-        sol = _gf_solve(a.astype(np.uint8), rhs.reshape(self.m, -1))
+        from .ec_shec import ErasureCodeShec
+        sol = ErasureCodeShec._gf_solve(
+            a.astype(np.uint8), rhs.reshape(self.m, -1))
         if sol is None:
             raise ErasureCodeError(errno.EIO, "clay: plane unsolvable")
         sol = sol.reshape(len(cols), *shape)

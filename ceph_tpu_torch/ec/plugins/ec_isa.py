@@ -68,6 +68,11 @@ _TABLE_CACHE = DecodeTableCache()
 class ErasureCodeIsa(ErasureCode):
     technique = "reed_sol_van"
 
+    # encode_chunks is exactly gf_matvec(matrix[k:]): equal matrices
+    # mean bit-equal parity, so instances may co-batch in the per-host
+    # launch queue (parallel/launch_queue.codec_signature)
+    matrix_determines_encode = True
+
     def __init__(self, technique: str = "reed_sol_van"):
         super().__init__()
         self.technique = technique

@@ -50,6 +50,14 @@ class ErasureCodeJerasure(ErasureCode):
 
     MINIMAL_DENSITY = ("liberation", "blaum_roth", "liber8tion")
 
+    # launch-queue coalescing (parallel/launch_queue.codec_signature):
+    # for every technique that sets self.matrix, encode_chunks is
+    # exactly gf_matvec(matrix[k:]), so equal matrices mean bit-equal
+    # parity and such instances may share a cross-PG launch.
+    # Minimal-density techniques encode via bitmatrix packets and leave
+    # self.matrix None (instance-identity batching only).
+    matrix_determines_encode = True
+
     def __init__(self, technique: str = "reed_sol_van"):
         super().__init__()
         self.technique = technique

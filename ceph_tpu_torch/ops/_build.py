@@ -14,7 +14,9 @@ The library lands in `ceph_tpu_torch/build/` (listed in .gitignore),
 named by a hash of the sources and flags, so a source change rebuilds
 and an unchanged tree reuses the last build.  Nothing here runs at
 import: `load()` is called by the kernel wrappers on their first
-launch.  A failed build raises; there is no fallback.
+launch.  A failed build raises; there is no fallback.  `status()` says
+whether this process compiled the library or loaded it from the build
+directory (the flight recorder's compile attribution, ops/profiler.py).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
@@ -36,6 +39,8 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# nvcc builds run by this process, and their wall seconds
+_builds = {"count": 0, "seconds": 0.0}
 
 
 def _nvcc() -> str:
@@ -73,6 +78,7 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         objs = []
@@ -99,7 +105,23 @@ def build() -> Path:
             raise RuntimeError(f"nvcc link failed:\n$ {' '.join(cmd)}\n"
                                f"{res.stdout}{res.stderr}")
         os.replace(tmp_lib, out)    # atomic: concurrent builds agree
+    _builds["count"] += 1
+    _builds["seconds"] += time.perf_counter() - t0
     return out
+
+
+def build_count() -> int:
+    """nvcc builds this process has run (0 when every library it loaded
+    was already in the build directory)."""
+    return _builds["count"]
+
+
+def status() -> dict:
+    """The kernel library's provenance: its path, whether it is loaded,
+    and the nvcc builds this process ran for it."""
+    return {"library": library_path().name, "loaded": _lib is not None,
+            "builds_in_process": _builds["count"],
+            "build_s": round(_builds["seconds"], 3)}
 
 
 def load() -> ctypes.CDLL:

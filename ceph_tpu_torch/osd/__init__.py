@@ -1,1 +1,2 @@
-"""OSD: the erasure-coded write/read pipeline (reference src/osd/)."""
+"""OSD: the erasure-coded write, read and recovery pipeline (reference
+src/osd/)."""

@@ -1,4 +1,4 @@
-"""ECBackend: the erasure-coded write and read engine.
+"""ECBackend: the erasure-coded write, read and recovery engine.
 
 Re-expresses reference src/osd/ECBackend.{h,cc}, as ceph_tpu's
 ECBackend does, with the codec launches on the card:
@@ -22,16 +22,37 @@ launch's event, fold crc seeds, issue sub-writes).  Up to
 compute of drain N; completion always runs in submit order, and a lone
 op with nothing behind it completes synchronously.
 
+Per-host launch queue (`launch_queue=`, parallel/launch_queue.py):
+when one is wired, a drain submits its fused runs and its plain run to
+the shared queue, which coalesces them with other PGs' into one launch
+a window; completion and in-order acks stay per PG.  Without one, the
+drain launches through the plugin directly.  Plugins without the
+submit halves (the host plugins jerasure, isa, lrc, shec, clay) encode
+synchronously on the host, their appends' crcs folded on the host.
+
 Reads: the healthy path reassembles the k data shards; a degraded read
-fans out to the parity shards and rebuilds the missing rows through
-the plugin's decode (reconstruct-on-read).
+fans out to the parity shards and rebuilds the missing rows through the
+decode path: the launch queue (co-batched with other PGs' repair
+decodes) or the plugin's decode (reconstruct-on-read).
+
+Recovery (reference continue_recovery_op :570), batched: an OSD-loss
+storm queues many objects missing the same shards, so
+`recover_shards_batch` fans out every object's survivor reads first,
+groups them by (survivors, targets) geometry and rebuilds each group in
+as few decode launches as DECODE_MAX_LAUNCH_W allows.  A single lost
+chunk of a CLAY pool reads only the repair planes of d helpers (1/q of
+each helper chunk) and rebuilds through the pool's ClayRepairPlan
+(K4): through the queue when one is wired, else one `apply_batch` a
+(lost, helpers) group.  A helper read failure falls back to the
+full-read decode for that object (`ec_clay_repair_fallbacks`).
 
 Shard I/O goes through the ShardBackend seam; LocalShardBackend applies
 to a local ObjectStore (the MemStore topology).
 
-Not part of this module (yet): the multi-card mesh plane, the per-host
-launch queue, the flight-recorder profiler and tracked ops, recovery,
-backfill and CLAY repair.  Perf counters are optional (`perf=None`).
+Not part of this module (yet): the multi-card mesh plane and its
+recovery branches, mClock-scheduled recovery, and tracked ops.  The
+counters default to `_build_ec_perf`'s set; any object with inc, set
+and tinc may stand in (`perf=`).
 """
 
 from __future__ import annotations
@@ -44,9 +65,15 @@ from dataclasses import dataclass, field
 from typing import Callable
 
 import numpy as np
+import torch
 
+from .. import resolve_device
 from ..common import crc32c as _crc
+from ..common.util import concat_columns, split_columns
 from ..ec.interface import ErasureCodeError, ErasureCodeInterface
+from ..ops.profiler import device_profiler
+from ..parallel.launch_queue import (DECODE_MAX_LAUNCH_W, _codec_label,
+                                     _extents_bucket)
 from ..store.object_store import ObjectStore, Transaction
 from . import ec_transaction as ect
 from . import ec_util
@@ -82,6 +109,11 @@ class ShardBackend:
             self.sub_read(shard, oid, off, length, on_done)
 
     def get_hinfo(self, shard: int, oid: hobject_t) -> HashInfo | None:
+        raise NotImplementedError
+
+    def get_attrs(self, shard: int, oid: hobject_t) -> dict | None:
+        """All xattrs of the shard object (hinfo + chunk_crc + user);
+        None when the shard object is absent."""
         raise NotImplementedError
 
     def stat(self, shard: int, oid: hobject_t) -> int | None:
@@ -150,6 +182,13 @@ class LocalShardBackend(ShardBackend):
             return None
         return HashInfo.decode(raw)
 
+    def get_attrs(self, shard, oid):
+        try:
+            return self.store.getattrs(self.cids[shard],
+                                       shard_oid(oid, shard))
+        except KeyError:
+            return None
+
     def stat(self, shard, oid):
         try:
             return self.store.stat(self.cids[shard], shard_oid(oid, shard))
@@ -186,18 +225,83 @@ class _Drain:
     # (op, oid, extent, run (k, W)) per stripe-aligned extent, op order
     work: list[tuple]
     kinds: list[str]                  # per work item: "fused" | "plain"
-    fused_handle: object | None       # plugin submit handle
+    fused_handle: object | None       # plugin submit handle | ticket
     fused_pos: dict[int, int]         # work index -> position in handle
-    plain_handle: object | None       # plugin encode_chunks_submit handle
+    plain_handle: tuple | None        # ("queue"|"plugin"|"np", handle)
     plain_cols: dict[int, int]        # work index -> column offset
     t_assemble: float = 0.0
+    # flight-recorder records of direct (non-queue) launches; queue
+    # launches are recorded by the queue itself
+    prof_fused: object | None = None
+    prof_plain: object | None = None
+
+
+@dataclass
+class _Recovery:
+    """One submitted recovery slice: per group, its objects' states and
+    the wait that returns their rebuilt shards."""
+    push_for: Callable
+    results: dict = field(default_factory=dict)
+    clay: list = field(default_factory=list)     # [(sts, wait)]
+    decode: list = field(default_factory=list)   # [(sts, wait)]
+
+
+def _build_ec_perf(name: str):
+    """The backend's own counter set (reference _build_ec_perf; the
+    mesh and deep-scrub counters come with those modules)."""
+    from ..common.perf_counters import PerfCountersBuilder
+    return (PerfCountersBuilder(name)
+            .add_u64_counter("ec_drain_submits", "pipeline drains launched")
+            .add_u64_counter("ec_drain_extents", "extents encoded")
+            .add_u64_counter("ec_drain_errors",
+                             "sub-write/encode failures absorbed")
+            .add_gauge("ec_inflight_depth",
+                       "drains in flight after last submit")
+            .add_time_avg("ec_drain_assemble",
+                          "host assemble+launch time per drain")
+            .add_time_avg("ec_drain_device",
+                          "device materialize (block) time per drain")
+            .add_time_avg("ec_drain_commit",
+                          "sub-write issue time per drain")
+            .add_u64_counter("ec_fused_kernel_drains",
+                             "fused drains served by the hier kernels")
+            .add_u64_counter("ec_fused_fallback_drains",
+                             "fused drains served by the flat or byte "
+                             "entry")
+            .add_u64_counter("ec_host_queue_drains",
+                             "drains routed through the per-host "
+                             "launch queue (cross-PG batching)")
+            .add_u64_counter("ec_repair_helper_bytes",
+                             "survivor/helper bytes read for repair")
+            .add_u64_counter("ec_repair_reconstructed_bytes",
+                             "shard bytes rebuilt by repair decodes")
+            .add_u64_counter("ec_clay_repairs",
+                             "objects repaired from repair-plane reads "
+                             "(bandwidth-optimal CLAY path)")
+            .add_u64_counter("ec_clay_repair_launches",
+                             "batched CLAY repair-plan launches")
+            .add_u64_counter("ec_clay_repair_fallbacks",
+                             "CLAY plane-read repairs that fell back "
+                             "to the full-read decode path")
+            .add_u64_counter("ec_reconstruct_reads",
+                             "degraded client reads served by "
+                             "reconstruct-on-read")
+            .add_u64_counter("ec_reconstruct_read_bytes",
+                             "logical bytes served by "
+                             "reconstruct-on-read")
+            .add_u64_counter("ec_read_timeouts",
+                             "client-read shard fan-outs that hit "
+                             "read_timeout")
+            .create_perf_counters())
 
 
 class ECBackend:
     def __init__(self, ec_impl: ErasureCodeInterface, sinfo: StripeInfo,
                  shards: ShardBackend, log: PGLog | None = None,
-                 dispatch_depth: int = 2, perf=None,
-                 read_timeout: float = 30.0):
+                 launch_queue=None, dispatch_depth: int = 2, perf=None,
+                 perf_name: str = "ec", read_timeout: float = 30.0,
+                 clay_repair: bool = True,
+                 device: str | torch.device | None = None):
         self.ec_impl = ec_impl
         self.sinfo = sinfo
         self.shards = shards
@@ -205,7 +309,27 @@ class ECBackend:
         self.m = ec_impl.get_coding_chunk_count()
         self.n = ec_impl.get_chunk_count()
         assert sinfo.k == self.k
+        # where this backend's own device work runs (the CLAY repair
+        # plans): the codec's device, else the card unless the caller
+        # passes "cpu"; a CUDA request without a GPU raises
+        codec_dev = getattr(ec_impl, "device", None)
+        self.device = resolve_device(
+            device if device is not None else codec_dev or "cuda")
+        if codec_dev is not None and \
+                torch.device(codec_dev) != self.device:
+            raise ValueError(f"codec on {codec_dev}, backend asked for "
+                             f"{self.device}")
+        # per-host EC launch queue (parallel/launch_queue.py): when set,
+        # drains, repair decodes and CLAY repairs submit there and
+        # coalesce with other PGs'; completion and in-order acks stay
+        # per PG
+        self._launch_queue = launch_queue
         self.read_timeout = max(0.05, float(read_timeout))
+        # CLAY plane-read repair: single-shard recovery of a sub-chunked
+        # plugin with a repair lowering reads only the repair planes of
+        # d helpers; off = always full-read decode
+        self._clay_repair = bool(clay_repair)
+        self._clay_plans: dict[tuple, object] = {}
         self.log = log or PGLog()
         self.lock = threading.RLock()
         self.waiting_state: list[ECOp] = []
@@ -219,9 +343,7 @@ class ECBackend:
         self.fused_path: str | None = None
         self._hold = 0
         self.dispatch_depth = max(1, int(dispatch_depth))
-        # optional counter set with inc/set/tinc (the daemon's perf
-        # counters are not part of this slice)
-        self.perf = perf
+        self.perf = perf if perf is not None else _build_ec_perf(perf_name)
         self._inflight: "deque[_Drain]" = deque()
         self._pipeline_win = 0        # pipeline() windows currently open
         self._completing = False      # re-entrancy guard for completion
@@ -246,6 +368,33 @@ class ECBackend:
                 "ec_fused_kernel_drains"
                 if path and path.startswith("hier")
                 else "ec_fused_fallback_drains")
+
+    def repair_status(self) -> dict:
+        """Per-PG repair state: the helper-bytes-read vs
+        reconstructed-bytes ledger (the CLAY savings made visible) plus
+        reconstruct-on-read and read-timeout provenance."""
+        dump = self.perf.dump() if hasattr(self.perf, "dump") else {}
+
+        def u64(key):
+            v = dump.get(key, 0)
+            return int(v) if isinstance(v, (int, float)) else 0
+        helper = u64("ec_repair_helper_bytes")
+        rebuilt = u64("ec_repair_reconstructed_bytes")
+        return {
+            "helper_bytes_read": helper,
+            "reconstructed_bytes": rebuilt,
+            "helper_bytes_per_rebuilt": round(helper / rebuilt, 3)
+            if rebuilt else None,
+            "clay_repairs": u64("ec_clay_repairs"),
+            "clay_repair_launches": u64("ec_clay_repair_launches"),
+            "clay_repair_fallbacks": u64("ec_clay_repair_fallbacks"),
+            "clay_plans_cached": len(self._clay_plans),
+            "reconstruct_reads": u64("ec_reconstruct_reads"),
+            "reconstruct_read_bytes": u64("ec_reconstruct_read_bytes"),
+            "read_timeouts": u64("ec_read_timeouts"),
+            "read_timeout_s": self.read_timeout,
+            "clay_plane_repair": self._clay_repair,
+        }
 
     @contextmanager
     def batch(self):
@@ -293,6 +442,9 @@ class ECBackend:
                 self.perf.set("ec_inflight_depth", 0)
 
     # -- object metadata helpers -------------------------------------------
+
+    def _get_hinfo(self, oid: hobject_t) -> HashInfo:
+        return self.shards.probe(oid, self.n)[0] or HashInfo.make(self.n)
 
     def _get_size(self, oid: hobject_t) -> int:
         """True (unpadded) object size from the hinfo xattr; falls back
@@ -505,8 +657,8 @@ class ECBackend:
     def _submit_drain(self, ready: list[ECOp]) -> _Drain:
         """Gather every extent of every ready op, encode the whole drain
         with launches that do not wait for the card (one fused launch
-        for appends + one plain launch for overwrites), and record the
-        in-flight drain."""
+        for appends + one plain launch for overwrites, or submissions
+        to the launch queue), and record the in-flight drain."""
         t0 = time.perf_counter()
         k = self.k
         work: list[tuple] = []
@@ -535,6 +687,7 @@ class ECBackend:
         # across all in-flight drains.  Overwrites take the plain path.
         fused_idx: list[int] = []
         plain_idx: list[int] = []
+        can_fuse = hasattr(self.ec_impl, "encode_extents_with_crc_submit")
         deleted: set[tuple[int, hobject_t]] = set()
         for i, ((op, oid, e, _), run) in enumerate(zip(work, runs)):
             hinfo = op.plan.hash_infos[oid]
@@ -545,7 +698,7 @@ class ECBackend:
             cur = self._sim_chunk.get(oid, hinfo.total_chunk_size)
             chunk_off = self.sinfo.aligned_logical_offset_to_chunk_offset(
                 e.off)
-            if chunk_off == cur:
+            if can_fuse and chunk_off == cur:
                 fused_idx.append(i)
                 self._sim_chunk[oid] = cur + run.shape[1]
             else:
@@ -564,13 +717,31 @@ class ECBackend:
         fused_set = set(fused_idx)
         drain.kinds = ["fused" if i in fused_set else "plain"
                        for i in range(len(work))]
+        prof = device_profiler()
+        codec = _codec_label(self.ec_impl)
+        queue = self._launch_queue
         try:
             if fused_idx:
                 drain.fused_pos = {wi: p for p, wi in enumerate(fused_idx)}
-                drain.fused_handle = \
-                    self.ec_impl.encode_extents_with_crc_submit(
-                        [runs[i] for i in fused_idx])
-                self._note_fused_path(drain.fused_handle["path"])
+                fused_runs = [runs[i] for i in fused_idx]
+                if queue is not None:
+                    # the queue coalesces these runs with other PGs';
+                    # the kernel path is known at completion
+                    drain.fused_handle = queue.submit_extents(
+                        self.ec_impl, fused_runs, owner=id(self))
+                    if self.perf:
+                        self.perf.inc("ec_host_queue_drains")
+                else:
+                    rec = prof.begin(
+                        "fused_encode", codec=codec, runs=len(fused_runs),
+                        nbytes=sum(r.size for r in fused_runs))
+                    drain.fused_handle = \
+                        self.ec_impl.encode_extents_with_crc_submit(
+                            fused_runs)
+                    prof.submitted(rec, _extents_bucket(drain.fused_handle),
+                                   path=drain.fused_handle["path"])
+                    drain.prof_fused = rec
+                    self._note_fused_path(drain.fused_handle["path"])
             if plain_idx:
                 col = 0
                 for i in plain_idx:
@@ -579,8 +750,43 @@ class ECBackend:
                 plain_runs = [runs[i] for i in plain_idx]
                 big = np.concatenate(plain_runs, axis=1) \
                     if len(plain_runs) > 1 else plain_runs[0]
-                drain.plain_handle = self.ec_impl.encode_chunks_submit(big)
+                # a sub-chunked code (CLAY) lays its planes over the
+                # whole run it encodes, so runs concatenated would encode
+                # as one chunk: each run encodes alone, on the host
+                # (ceph_tpu's ECBackend concatenates them, and recovery
+                # of such an object then fails its crc check)
+                sub_chunked = self.ec_impl.get_sub_chunk_count() != 1
+                if queue is not None and not sub_chunked:
+                    drain.plain_handle = ("queue", queue.submit_chunks(
+                        self.ec_impl, big, owner=id(self)))
+                    if self.perf and not fused_idx:
+                        self.perf.inc("ec_host_queue_drains")
+                elif hasattr(self.ec_impl, "encode_chunks_submit"):
+                    rec = prof.begin("plain_encode", codec=codec,
+                                     nbytes=int(big.size))
+                    h = self.ec_impl.encode_chunks_submit(big)
+                    drain.plain_handle = ("plugin", h)
+                    prof.submitted(rec, f"c:{h[0]}:w{big.shape[1]}",
+                                   path=str(h[0]))
+                    drain.prof_plain = rec
+                else:
+                    # host-synchronous plugins: the whole encode is the
+                    # submit; nothing runs on a device
+                    rec = prof.begin("plain_encode", codec=codec,
+                                     nbytes=int(big.size))
+                    drain.plain_handle = ("np", np.concatenate(
+                        [np.asarray(self.ec_impl.encode_chunks(r))
+                         for r in (plain_runs if sub_chunked else [big])],
+                        axis=1))
+                    prof.submitted(rec, f"c:np:w{big.shape[1]}", path="np",
+                                   jit=False)
+                    prof.materialized(rec, 0.0)
         except Exception:
+            # withdraw a queue submission this drain already made: the
+            # owning ops are about to abort, and an orphaned pending
+            # submission would launch work nobody finalizes
+            if getattr(drain.fused_handle, "is_launch_ticket", False):
+                drain.fused_handle.cancel()
             # undo this drain's projection refs before the caller aborts
             # the ops (a stale projection would push every later append
             # of these objects off the fused path)
@@ -637,17 +843,45 @@ class ECBackend:
 
     def _complete_drain(self, drain: _Drain) -> None:
         t0 = time.perf_counter()
+        prof = device_profiler()
         try:
             try:
                 fh = drain.fused_handle
-                fused_res = [] if fh is None else \
-                    self.ec_impl.encode_extents_with_crc_finalize(fh)
-                ph = drain.plain_handle
-                plain_par = None if ph is None else \
-                    self.ec_impl.encode_chunks_finalize(ph)
+                if fh is None:
+                    fused_res = []
+                elif getattr(fh, "is_launch_ticket", False):
+                    # result() forces the shared launch if the window
+                    # has not fired and demuxes this submission's runs
+                    fused_res = fh.result()
+                    self._note_fused_path(fh.path)
+                else:
+                    fused_res = \
+                        self.ec_impl.encode_extents_with_crc_finalize(fh)
+                    prof.materialized(drain.prof_fused,
+                                      time.perf_counter() - t0)
+                plain_par = None
+                if drain.plain_handle is not None:
+                    kind, h = drain.plain_handle
+                    t_p = time.perf_counter()
+                    if kind == "queue":
+                        plain_par = np.asarray(h.result())
+                    elif kind == "plugin":
+                        plain_par = self.ec_impl.encode_chunks_finalize(h)
+                        prof.materialized(drain.prof_plain,
+                                          time.perf_counter() - t_p)
+                    else:
+                        plain_par = h
             except Exception as e:  # noqa: BLE001 — device/encode failure
                 if self.perf:
                     self.perf.inc("ec_drain_errors")
+                # the fused and plain halves are separate queue tickets:
+                # when one raises, withdraw the other if it is still
+                # pending, or the window worker launches it for nobody
+                for h in (drain.fused_handle,
+                          drain.plain_handle[1]
+                          if drain.plain_handle is not None else None):
+                    if getattr(h, "is_launch_ticket", False):
+                        h.cancel()
                 for op in drain.ops:
                     self._abort_op(op, e)
                 return
@@ -899,7 +1133,11 @@ class ECBackend:
     def _reconstruct_read(self, have: dict[int, np.ndarray],
                           chunk_len: int, span: int) -> np.ndarray:
         """Reconstruct-on-read: rebuild the missing data shards of a
-        degraded read with the plugin's decode."""
+        degraded read through the decode path — the per-host launch
+        queue (co-batched with other PGs' repair decodes) when one is
+        wired, the plugin's decode otherwise.  Sub-chunked codes (CLAY)
+        keep the dict-decode path: a partial chunk run does not respect
+        their plane layout."""
         if self.perf:
             self.perf.inc("ec_reconstruct_reads")
             self.perf.inc("ec_reconstruct_read_bytes", span)
@@ -910,9 +1148,412 @@ class ECBackend:
         dense = np.zeros((self.n, chunk_len), dtype=np.uint8)
         for s, d in use.items():
             dense[s] = d
-        dec = np.asarray(self.ec_impl.decode_chunks(dense, erasures))
+        if self._launch_queue is not None:
+            dec = np.asarray(self._launch_queue.submit_decode(
+                self.ec_impl, dense, erasures, owner=id(self)).result())
+        else:
+            dec = np.asarray(self.ec_impl.decode_chunks(dense, erasures))
         nstripes = chunk_len // self.sinfo.chunk_size
         logical = dec[: self.k] \
             .reshape(self.k, nstripes, self.sinfo.chunk_size) \
             .transpose(1, 0, 2).reshape(-1)
         return logical[:span]
+
+    # -- recovery (reference continue_recovery_op :570) ---------------------
+    #
+    # Batched: an OSD-loss storm queues many objects missing the same
+    # shards, so the batch entry fans out every object's survivor reads
+    # concurrently, groups the results by (survivors, targets) recovery
+    # geometry, and rebuilds each group in as few decode launches as the
+    # width cap allows (through the launch queue when one is wired).
+
+    def recover_shard(self, oid: hobject_t, missing: list[int],
+                      push: Callable[[int, np.ndarray, HashInfo], None]
+                      ) -> None:
+        """Rebuild `missing` shards of oid from any k survivors and hand
+        each to `push(shard, data, hinfo)` (the caller writes it to the
+        new home)."""
+        res = self.recover_shards_batch([(oid, list(missing))],
+                                        lambda _oid: push)
+        err = res.get(oid)
+        if err is not None:
+            raise err
+
+    def _start_recovery_reads(self, oid: hobject_t,
+                              missing: list[int]) -> dict:
+        """Phase 1 of a batched recovery: metadata probe + survivor read
+        fan-out for ONE object, returning the gathering state WITHOUT
+        waiting — a storm issues all its reads before the first wait."""
+        hinfo = self._get_hinfo(oid)
+        chunk_len = None
+        for s in range(self.n):
+            if s in missing:
+                continue
+            chunk_len = self.shards.stat(s, oid)
+            if chunk_len is not None:
+                break
+        if chunk_len is None:
+            raise ErasureCodeError(5, f"cannot recover {oid}: no survivor")
+        got: dict[int, np.ndarray] = {}
+        glock = threading.Lock()
+        done = {"n": 0}
+        ready = threading.Event()
+        sources = [s for s in range(self.n) if s not in missing]
+
+        def on_done(sh, d):
+            with glock:       # replies race on reader threads
+                if d is not None:
+                    got[sh] = d
+                done["n"] += 1
+                fire = len(got) >= self.k or done["n"] >= len(sources)
+            if fire:
+                ready.set()
+
+        self.shards.sub_read_batch(
+            [(s, oid, 0, chunk_len) for s in sources], on_done)
+        return {"oid": oid, "missing": list(missing), "hinfo": hinfo,
+                "chunk_len": chunk_len, "got": got, "glock": glock,
+                "ready": ready}
+
+    def _verify_recovered(self, st: dict, s: int,
+                          data: np.ndarray) -> None:
+        """Verify a rebuilt shard against the stored hinfo (reference
+        handle_sub_read crc check, ECBackend.cc:991)."""
+        hinfo = st["hinfo"]
+        want = hinfo.get_chunk_hash(s)
+        got_crc = _crc.crc32c(data.tobytes(), 0xFFFFFFFF)
+        if hinfo.crc_valid and \
+                hinfo.total_chunk_size == st["chunk_len"] and \
+                got_crc != want:
+            raise ErasureCodeError(
+                5, f"recovered shard {s} of {st['oid']} crc mismatch "
+                   f"{got_crc:#x} != {want:#x}")
+
+    # objects per recovery sub-batch: bounds both the concurrent survivor
+    # read fan-out and the peak survivor-chunk memory (~max * k *
+    # chunk_len held at once)
+    RECOVER_BATCH_MAX = 64
+    # max concatenated byte width of one grouped recovery decode launch
+    # (the launch queue enforces the same cap on cross-PG coalescing).
+    # A single object's chunk wider than the cap launches alone.
+    DECODE_MAX_LAUNCH_W = DECODE_MAX_LAUNCH_W
+
+    def recover_shards_batch(
+            self, items: list[tuple[hobject_t, list[int]]],
+            push_for: Callable[[hobject_t], Callable]) -> dict:
+        """Rebuild many objects' missing shards in as few decode
+        launches as the recovery geometry allows.  items: [(oid,
+        missing_shards)]; push_for(oid) -> the per-object
+        push(shard, data, hinfo) sink.  Returns {oid: None on success
+        | the per-object Exception} — one object's failure never blocks
+        the rest.  Processed in slices of RECOVER_BATCH_MAX, each one
+        recover_shards_submit + recover_shards_finalize."""
+        results: dict[hobject_t, Exception | None] = {}
+        step = self.RECOVER_BATCH_MAX
+        for lo in range(0, len(items), step):
+            results.update(self.recover_shards_finalize(
+                self.recover_shards_submit(items[lo:lo + step], push_for)))
+        return results
+
+    def recover_shards_submit(
+            self, items: list[tuple[hobject_t, list[int]]],
+            push_for: Callable[[hobject_t], Callable]) -> _Recovery:
+        """Submit half of one recovery slice (at most RECOVER_BATCH_MAX
+        objects, the reference's _recover_shards_slice up to its
+        launches): every object's reads, grouped by geometry, and with
+        a launch queue wired every group's decodes or CLAY repair
+        submitted without waiting.  A recovery storm over many PGs
+        submits every PG's slice before it finalizes any, so the queue
+        coalesces their launches across PGs; recover_shards_batch
+        finalizes at once, as the reference does.  Without a queue the
+        launches run in recover_shards_finalize."""
+        if len(items) > self.RECOVER_BATCH_MAX:
+            raise ValueError(f"{len(items)} objects in one recovery slice, "
+                             f"at most {self.RECOVER_BATCH_MAX}")
+        rec = _Recovery(push_for)
+        results = rec.results
+        states: list[dict] = []
+        clay_states: list[dict] = []
+        # phase 1: every object's reads in flight before any wait.
+        # Single-shard losses of a sub-chunked plugin with a repair
+        # lowering take the CLAY path: only the q^{t-1} repair planes of
+        # d helpers are read (1/q of each helper chunk)
+        for oid, missing in items:
+            try:
+                st = None
+                if self._clay_repair_eligible(missing):
+                    st = self._start_clay_repair_reads(oid, missing[0])
+                if st is not None:
+                    clay_states.append(st)
+                else:
+                    states.append(self._start_recovery_reads(
+                        oid, missing))
+            except Exception as e:  # noqa: BLE001 — per-object result
+                results[oid] = e
+        # phase 2 (CLAY): collect plane reads; any helper failure falls
+        # back to the full-read decode path for that object
+        clay_groups: dict[tuple, list[dict]] = {}
+        for st in clay_states:
+            st["ready"].wait(timeout=self.read_timeout)
+            with st["glock"]:
+                complete = not st["failed"] and st["left"] == 0
+            if not complete:
+                if self.perf:
+                    self.perf.inc("ec_clay_repair_fallbacks")
+                try:
+                    states.append(self._start_recovery_reads(
+                        st["oid"], st["missing"]))
+                except Exception as e:  # noqa: BLE001 — per-object result
+                    results[st["oid"]] = e
+                continue
+            if self.perf:
+                self.perf.inc("ec_repair_helper_bytes",
+                              st["helper_bytes"])
+            clay_groups.setdefault(
+                (st["lost"], st["helpers"], st["chunk_len"]),
+                []).append(st)
+        for (lost, helpers, _clen), sts in clay_groups.items():
+            try:
+                rec.clay.append((sts, self._clay_repair_group(
+                    lost, helpers, sts)))
+            except Exception as e:  # noqa: BLE001 — whole-group launch
+                for st in sts:
+                    results.setdefault(st["oid"], e)
+        # phase 2 (full): collect; drop objects that can't reach k
+        # survivors
+        groups: dict[tuple, list[dict]] = {}
+        for st in states:
+            st["ready"].wait(timeout=self.read_timeout)
+            with st["glock"]:
+                # snapshot: late on_done callbacks still write into got
+                have = dict(st["got"])
+            if len(have) < self.k:
+                results[st["oid"]] = ErasureCodeError(
+                    5, f"cannot recover {st['oid']}: "
+                       f"{len(have)} < k={self.k}")
+                continue
+            st["have"] = have
+            if self.perf:
+                self.perf.inc("ec_repair_helper_bytes",
+                              len(have) * st["chunk_len"])
+            survivors = tuple(sorted(have))[: self.k]
+            targets = tuple(sorted(st["missing"]))
+            erasures = tuple(s for s in range(self.n) if s not in have)
+            groups.setdefault((survivors, targets, erasures),
+                              []).append(st)
+        # phase 3: one decode per geometry group (width-capped slices)
+        for (_survivors, targets, erasures), sts in groups.items():
+            try:
+                rec.decode.append((sts, self._decode_recovery_group(
+                    targets, erasures, sts)))
+            except Exception as e:  # noqa: BLE001 — whole-group launch
+                for st in sts:
+                    results.setdefault(st["oid"], e)
+        return rec
+
+    def recover_shards_finalize(self, rec: _Recovery) -> dict:
+        """Completion half: wait for each group's launches, verify every
+        rebuilt shard against its hinfo and push it; returns {oid: None
+        | the per-object Exception}."""
+        for clay, (sts, rebuilt) in [(True, g) for g in rec.clay] + \
+                [(False, g) for g in rec.decode]:
+            try:
+                per_st = rebuilt()
+            except Exception as e:  # noqa: BLE001 — whole-group launch
+                for st in sts:
+                    rec.results.setdefault(st["oid"], e)
+                continue
+            if clay and self.perf:
+                self.perf.inc("ec_clay_repair_launches")
+                self.perf.inc("ec_clay_repairs", len(sts))
+            for st, shards in zip(sts, per_st):
+                try:
+                    push = rec.push_for(st["oid"])
+                    for s in st["missing"]:
+                        data = np.ascontiguousarray(shards[s]).reshape(-1)
+                        self._verify_recovered(st, s, data)
+                        push(s, data, st["hinfo"])
+                        if self.perf:
+                            self.perf.inc("ec_repair_reconstructed_bytes",
+                                          data.size)
+                except Exception as e:  # noqa: BLE001 — per-object verify
+                    rec.results.setdefault(st["oid"], e)
+                    continue
+                rec.results.setdefault(st["oid"], None)
+        return rec.results
+
+    # -- CLAY plane-read repair ---------------------------------------------
+
+    def _clay_repair_eligible(self, missing: list[int]) -> bool:
+        return (self._clay_repair and len(missing) == 1 and
+                self.ec_impl.get_sub_chunk_count() > 1 and
+                hasattr(self.ec_impl, "repair_matrix"))
+
+    def _clay_plan(self, lost: int, helpers: tuple[int, ...]):
+        """Cached ClayRepairPlan for one (lost, helper set) on this
+        backend's device: the host plane-solver runs once, every repair
+        after is one K4 apply (parallel/mesh.ClayRepairPlan)."""
+        key = (lost, helpers)
+        plan = self._clay_plans.get(key)
+        if plan is None:
+            from ..parallel.mesh import ClayRepairPlan
+            plan = ClayRepairPlan.build(self.ec_impl, lost, helpers,
+                                        device=self.device)
+            self._clay_plans[key] = plan
+        return plan
+
+    def _start_clay_repair_reads(self, oid: hobject_t,
+                                 lost: int) -> dict | None:
+        """Phase 1 of a CLAY repair: fan out the repair-plane sub-chunk
+        runs of the d chosen helpers without waiting.  Returns None
+        when the geometry can't serve the plane path (no helper set,
+        chunk not sub-aligned): the caller falls back to full reads."""
+        impl = self.ec_impl
+        sub = impl.get_sub_chunk_count()
+        hinfo = self._get_hinfo(oid)
+        chunk_len = None
+        for s in range(self.n):
+            if s == lost:
+                continue
+            chunk_len = self.shards.stat(s, oid)
+            if chunk_len is not None:
+                break
+        if chunk_len is None:
+            raise ErasureCodeError(5,
+                                   f"cannot recover {oid}: no survivor")
+        if chunk_len % sub:
+            return None
+        helpers = impl.choose_helpers(
+            lost, set(range(self.n)) - {lost})
+        if helpers is None:
+            return None
+        helpers = tuple(sorted(helpers))
+        sub_size = chunk_len // sub
+        planes = impl.repair_planes(lost)
+        runs = impl._runs(planes)
+        row0 = []
+        acc = 0
+        for _s0, cnt in runs:
+            row0.append(acc)
+            acc += cnt
+        got = {h: np.zeros((len(planes), sub_size), dtype=np.uint8)
+               for h in helpers}
+        glock = threading.Lock()
+        state = {"oid": oid, "missing": [lost], "lost": lost,
+                 "helpers": helpers, "hinfo": hinfo,
+                 "chunk_len": chunk_len, "sub_size": sub_size,
+                 "got": got, "glock": glock, "failed": set(),
+                 "left": len(helpers) * len(runs),
+                 "helper_bytes": len(helpers) * len(planes) * sub_size,
+                 "ready": threading.Event()}
+
+        # one callback closure per run index: on_done only reports the
+        # shard, so the run identity must ride the closure
+        for ri, (s0, cnt) in enumerate(runs):
+            def make_cb(r0=row0[ri], cnt=cnt):
+                def cb(sh, d):
+                    with glock:
+                        if d is None:
+                            state["failed"].add(sh)
+                        else:
+                            if d.size < cnt * sub_size:
+                                # sparse tail: pad like the healthy
+                                # shard-read path does
+                                d = np.concatenate(
+                                    [d, np.zeros(cnt * sub_size - d.size,
+                                                 dtype=np.uint8)])
+                            got[sh][r0:r0 + cnt] = \
+                                d.reshape(cnt, sub_size)
+                        state["left"] -= 1
+                        fire = state["left"] == 0 or state["failed"]
+                    if fire:
+                        state["ready"].set()
+                return cb
+            self.shards.sub_read_batch(
+                [(h, oid, s0 * sub_size, cnt * sub_size)
+                 for h in helpers], make_cb())
+        return state
+
+    def _clay_repair_group(self, lost: int, helpers: tuple[int, ...],
+                           sts: list[dict]) -> Callable[[], list]:
+        """Launch the rebuild of one (lost, helpers) CLAY group: every
+        object's stacked helper plane rows ride one K4 launch — through
+        the per-host launch queue (co-batched with other PGs' repairs)
+        when one is wired, the plan's apply_batch otherwise; neither has
+        a host fallback.  Returns the wait: per object {lost: chunk}."""
+        plan = self._clay_plan(lost, helpers)
+        rows_list = [
+            self.ec_impl.repair_rows(
+                lost, {h: st["got"][h] for h in helpers}, helpers)
+            for st in sts]
+        if self._launch_queue is not None:
+            big, widths = concat_columns(rows_list)
+            ticket = self._launch_queue.submit_clay_repair(
+                plan, big, owner=id(self))
+            return lambda: [{lost: r} for r in split_columns(
+                np.asarray(ticket.result()), widths)]
+        return lambda: [{lost: r} for r in plan.apply_batch(rows_list)]
+
+    def _decode_recovery_group(self, targets, erasures, sts: list[dict]
+                               ) -> Callable[[], list]:
+        """Launch the rebuild of one (survivors, targets) geometry
+        group: width-capped concatenated decodes, through the launch
+        queue when one is wired so recovery decodes coalesce with other
+        PGs'; sub-chunked codes (CLAY) decode per object — their plane
+        layout does not concatenate along the byte axis.  Returns the
+        wait: per object {shard: data} for the targets."""
+        erasures = list(erasures)
+        if self.ec_impl.get_sub_chunk_count() != 1:
+            def per_object():
+                out = []
+                for st in sts:
+                    dense = np.zeros((self.n, st["chunk_len"]),
+                                     dtype=np.uint8)
+                    for s, d in st["have"].items():
+                        dense[s] = d
+                    dec = self.ec_impl.decode_chunks(dense, erasures)
+                    out.append({s: dec[s] for s in targets})
+                return out
+            return per_object
+        slices: list[list[dict]] = []
+        cur: list[dict] = []
+        cur_w = 0
+        for st in sts:
+            w = st["chunk_len"]
+            if cur and cur_w + w > self.DECODE_MAX_LAUNCH_W:
+                slices.append(cur)
+                cur, cur_w = [], 0
+            cur.append(st)
+            cur_w += w
+        if cur:
+            slices.append(cur)
+        launches = []
+        try:
+            for chunk_sts in slices:
+                widths = [st["chunk_len"] for st in chunk_sts]
+                big = np.zeros((self.n, sum(widths)), dtype=np.uint8)
+                col = 0
+                for st, w in zip(chunk_sts, widths):
+                    for s, d in st["have"].items():
+                        big[s, col:col + w] = d
+                    col += w
+                launches.append((widths, big if self._launch_queue is None
+                                 else self._launch_queue.submit_decode(
+                                     self.ec_impl, big, erasures,
+                                     owner=id(self))))
+        except Exception:
+            for _w, t in launches:
+                t.cancel()
+            raise
+
+        def wait():
+            out = []
+            for widths, launch in launches:
+                dec = np.asarray(launch.result()) \
+                    if getattr(launch, "is_launch_ticket", False) \
+                    else np.asarray(self.ec_impl.decode_chunks(
+                        launch, erasures))
+                out.extend({s: part[s] for s in targets}
+                           for part in split_columns(dec, widths))
+            return out
+        return wait

@@ -46,6 +46,10 @@ class StripeInfo:
     def logical_to_next_stripe_offset(self, off: int) -> int:
         return -(-off // self.stripe_width) * self.stripe_width
 
+    def logical_to_prev_chunk_offset(self, off: int) -> int:
+        """Byte offset within each shard object for a logical offset."""
+        return (off // self.stripe_width) * self.chunk_size
+
     def logical_to_next_chunk_offset(self, off: int) -> int:
         return -(-off // self.stripe_width) * self.chunk_size
 
@@ -79,6 +83,15 @@ def chunk_crc_of(data) -> bytes:
     import numpy as _np
     return _crc32c.crc32c(_np.asarray(data).tobytes(),
                           0xFFFFFFFF).to_bytes(4, "little")
+
+
+def recovery_attrs(hinfo: "HashInfo", data) -> dict[str, bytes]:
+    """Xattrs a freshly-rebuilt shard should carry: the hinfo always,
+    plus a chunk_crc when the hinfo's cumulative hashes are dead."""
+    attrs = {HINFO_KEY: hinfo.encode()}
+    if hinfo.invalidated:
+        attrs[CHUNK_CRC_KEY] = chunk_crc_of(data)
+    return attrs
 
 
 def refresh_chunk_crcs(store, cid, shard: int, entries) -> None:

@@ -93,14 +93,35 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    and one object a chunk to codec.repair on the host; launches, wall
    time and GB/s of rebuilt bytes.  Then K4 at the batch shape at 1x,
    2x and 4x its fewest passes.
-9. A/B (phase F): the native CPU library must have built; then
+9. Recovery storm (phase H): an OSD-loss storm through one per-host
+   ECLaunchQueue.  torch k=8 m=3 (its point pinned to K3), four PGs
+   whose backends share the queue, 64 objects a PG of 4 MiB (RBD) and
+   then of 64 KiB (small S3 objects), written round-robin through the
+   queue (K3, K2's flat entry); then one shard (3) and then shards
+   {0, 9} of every object lost and recovered in steps of three objects
+   a PG, every PG's recover_shards_submit before any
+   recover_shards_finalize (the halves of recover_shards_batch): K1
+   decodes through the queue, at most 64 KiB of columns a coalesced
+   launch.  Then CLAY k=8 m=4 d=11, two PGs x 16 objects of 4 MiB, chunk
+   2 lost and repaired from the repair planes of 11 helpers through the
+   queue (K4).  Every rebuilt shard must equal the lost bytes and its
+   crc32c the stored HashInfo's; it is pushed back with its recovery
+   xattrs.  Launch counters are zeroed before each write and recovery
+   and read after; each recovery must have launched its kernel, and the
+   small-object storm must show a decode launch that coalesced PGs.
+   Rebuilt GB/s, wall time, the queue's status (launches, submissions a
+   launch, cross-PG launches) and the flight recorder's launches by
+   kind are printed with the card's name and power limit.
+10. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels,
-K3 table and K2 table JSON lines, the main paths', the benchmark's, the
-w32 sweep's, the CLAY repair's and the A/B's lines, and as the last line
+K3 table and K2 table JSON lines (each kernel row with its launches on
+its own phase and in the recovery storm), the main paths', the
+benchmark's, the w32 sweep's, the CLAY repair's, the recovery storm's
+and the A/B's lines, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
 """
@@ -532,6 +553,269 @@ def phase_clay_repair(dev, rng) -> tuple[dict, dict]:
         for key, v in c.items():
             merged[key] = merged.get(key, 0) + v
     return merged, report
+
+
+# Phase H: the recovery storm.  torch k=8 m=3 over N_STORM_PGS PGs
+# sharing one ECLaunchQueue, N_STORM_OBJECTS objects a PG of each size;
+# CLAY k=8 m=4 d=11 over 2 PGs of 16 objects of 4 MiB
+N_STORM_PGS, N_STORM_OBJECTS = 4, 64
+STORM_LOSSES = ((3,), (0, 9))
+N_CLAY_STORM_PGS, N_CLAY_STORM_OBJECTS = 2, 16
+CLAY_STORM_LOST = 2
+# objects a PG recovers at a time (the reference's osd_recovery_max_active
+# default for an HDD OSD); every PG's step is submitted before any is
+# finalized, as an OSD recovering several PGs at once
+STORM_STEP = 3
+# the storm's queue window: each step is finalized right after it is
+# submitted, so the window only has to outlast a step's submit half (a
+# 250 us window fires inside it and launches the first PGs' decodes alone)
+STORM_WINDOW_US = 20_000.0
+
+
+def storm_pgs(dev, queue, plugin: str, profile: dict, n_pgs: int, store):
+    """n_pgs ECBackends of one pool (pg_t(2, i)), each with its own codec
+    instance, over one MemStore, all submitting to `queue`."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.osd.types import pg_t
+    out = []
+    for i in range(n_pgs):
+        codec = ErasureCodePluginRegistry.instance().factory(
+            plugin, dict(profile))
+        k, n = codec.get_data_chunk_count(), codec.get_chunk_count()
+        chunk = codec.get_chunk_size(k * STRIPE_UNIT)
+        shards = LocalShardBackend(store, pg_t(2, i), n)
+        out.append(ECBackend(codec, StripeInfo(k * chunk, chunk), shards,
+                             launch_queue=queue, device=dev))
+    return out
+
+
+def storm_write(backends, rng, size: int, n_objects: int) -> dict:
+    """n_objects objects of `size` bytes a PG, submitted round-robin over
+    the PGs inside one pipeline() window each, so drains of different PGs
+    meet in the queue.  Returns {(pg index, name): payload}."""
+    from ceph_tpu_torch.osd.ec_transaction import PGTransaction
+    from ceph_tpu_torch.osd.types import eversion_t, hobject_t
+    objs = {(p, f"o{i}"): np.frombuffer(rng.bytes(size), dtype=np.uint8)
+            for i in range(n_objects) for p in range(len(backends))}
+    acks = []
+    with contextlib.ExitStack() as stack:
+        for be in backends:
+            stack.enter_context(be.pipeline())
+        for v, ((p, name), data) in enumerate(objs.items()):
+            txn = PGTransaction()
+            txn.write(hobject_t(pool=2, name=name), 0, data)
+            backends[p].submit_transaction(
+                txn, eversion_t(1, v + 1), lambda: acks.append(1))
+    if len(acks) != len(objs):
+        raise AssertionError(f"{len(acks)} of {len(objs)} writes acked")
+    return objs
+
+
+def storm_recover(backends, objs, missing) -> dict:
+    """Lose `missing` shards of every object, then recover them in steps
+    of STORM_STEP objects a PG: every PG's recover_shards_submit before
+    any recover_shards_finalize (the two halves of recover_shards_batch),
+    as an OSD recovering several PGs at once; each rebuilt shard is pushed back
+    to its collection with its recovery xattrs.  Every rebuilt shard must
+    equal the lost bytes and its crc32c the stored HashInfo's.  Returns
+    the rebuilt bytes and the wall seconds."""
+    from ceph_tpu_torch.common import crc32c
+    from ceph_tpu_torch.osd import ec_util
+    from ceph_tpu_torch.osd.ec_transaction import shard_oid
+    from ceph_tpu_torch.osd.types import hobject_t
+    from ceph_tpu_torch.store.object_store import Transaction
+    lost = {}
+    for (p, name) in objs:
+        sh = backends[p].shards
+        o = hobject_t(pool=2, name=name)
+        for s in missing:
+            g = shard_oid(o, s)
+            lost[(p, name, s)] = sh.store.read(sh.cids[s], g).copy()
+            t = Transaction()
+            t.remove(g)
+            sh.store.queue_transactions(sh.cids[s], [t])
+    pushed = {}
+
+    def push_for(p, name):
+        sh = backends[p].shards
+
+        def push(s, data, hinfo):
+            g = shard_oid(hobject_t(pool=2, name=name), s)
+            t = Transaction()
+            t.write(g, 0, data)
+            t.setattrs(g, ec_util.recovery_attrs(hinfo, data))
+            sh.store.queue_transactions(sh.cids[s], [t])
+            pushed[(p, name, s)] = (data, hinfo)
+        return push
+
+    items = [[(hobject_t(pool=2, name=name), list(missing))
+              for (q, name) in objs if q == p] for p in range(len(backends))]
+    t0 = time.perf_counter()
+    results = {}
+    for lo in range(0, max(map(len, items)), STORM_STEP):
+        recs = [be.recover_shards_submit(
+            its[lo:lo + STORM_STEP], lambda o, p=p: push_for(p, o.name))
+            for p, (be, its) in enumerate(zip(backends, items))]
+        for p, (be, rec) in enumerate(zip(backends, recs)):
+            for o, err in be.recover_shards_finalize(rec).items():
+                results[(p, o.name)] = err
+    wall = time.perf_counter() - t0
+    bad = {key: err for key, err in results.items() if err is not None}
+    if bad or len(results) != len(objs):
+        raise AssertionError(f"recovery failed for {len(bad)} objects "
+                             f"({len(results)} of {len(objs)} answered): "
+                             f"{next(iter(bad.values()), None)!r}")
+    nbytes = 0
+    for key, want in lost.items():
+        data, hinfo = pushed[key]
+        if not np.array_equal(data, want):
+            raise AssertionError(f"rebuilt shard {key} differs")
+        if not hinfo.crc_valid or crc32c.crc32c(data.tobytes()) != \
+                hinfo.get_chunk_hash(key[2]):
+            raise AssertionError(f"rebuilt shard {key}: crc32c differs "
+                                 "from its HashInfo")
+        nbytes += data.size
+    return {"rebuilt_bytes": nbytes, "wall_s": wall,
+            "rebuilt_GBps": nbytes / wall / 1e9}
+
+
+def storm_snapshot(queue, prof) -> tuple[dict, dict]:
+    return queue.status(), prof.perf.dump()
+
+
+def storm_counts(bs, queue, prof, before) -> dict:
+    """Kernel launches, queue status and flight-recorder launches by kind
+    since `before` (storm_snapshot), with the seconds the recorded
+    launches spent in their submit (for a decode or a repair: staging,
+    the kernel and the copy back) and in materialize."""
+    before, lat0 = before
+    st = queue.status()
+    lat = prof.perf.dump()
+    launches = st["launches"] - before["launches"]
+    return {"kernel_launches": bs.launch_counts(),
+            "launch_submit_s": lat["lat_launch_submit"]["sum"]
+            - lat0["lat_launch_submit"]["sum"],
+            "launch_materialize_s": lat["lat_launch_device"]["sum"]
+            - lat0["lat_launch_device"]["sum"],
+            "queue_launches": launches,
+            "decode_launches": st["decode_launches"]
+            - before["decode_launches"],
+            "repair_launches": st["repair_launches"]
+            - before["repair_launches"],
+            "cross_pg_launches": st["cross_pg_launches"]
+            - before["cross_pg_launches"],
+            "subs_per_launch": (st["submissions"] - before["submissions"])
+            / launches if launches else 0.0,
+            "profiler_by_kind": prof.profile(last=0)["by_kind"]}
+
+
+def phase_recovery_storm(dev, rng) -> tuple[dict, dict]:
+    """Phase H: the path an OSD-loss storm takes, through one per-host
+    ECLaunchQueue on the card.  torch k=8 m=3: N_STORM_PGS PGs x
+    N_STORM_OBJECTS objects of 4 MiB (RBD) and of 64 KiB (small S3
+    objects) written through the queue (K3 / K2's flat entry), then one
+    shard and then shards {0, 9} lost and recovered (K1 decodes through
+    the queue).  CLAY k=8 m=4 d=11: 2 PGs x 16 objects of 4 MiB, one
+    chunk lost and repaired from repair planes through the queue (K4).
+    Kernel launch counters are zeroed before each recovery and each
+    write and read after it; every recovery must have run its kernel.
+    Returns (launch counts by step, the report)."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops.profiler import device_profiler
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.store import MemStore
+
+    prof = device_profiler()
+    report = {"card": nvidia_smi_line(), "pgs": N_STORM_PGS,
+              "objects_per_pg": N_STORM_OBJECTS}
+    counts = {}
+    t_phase = time.perf_counter()
+    for size, tag in ((BIG, "4MiB"), (SMALL, "64KiB")):
+        store = MemStore()
+        store.mount()
+        queue = ECLaunchQueue(window_us=STORM_WINDOW_US, device=dev)
+        try:
+            backends = storm_pgs(dev, queue, "torch",
+                                 {"k": str(K), "m": str(M),
+                                  "device": str(dev)}, N_STORM_PGS, store)
+            bs.reset_launch_counts()
+            prof.reset()
+            before = storm_snapshot(queue, prof)
+            t0 = time.perf_counter()
+            objs = storm_write(backends, rng, size, N_STORM_OBJECTS)
+            torch.cuda.synchronize()
+            t_write = time.perf_counter() - t0
+            step = storm_counts(bs, queue, prof, before)
+            step.update(wall_s=t_write,
+                        write_GBps=len(objs) * size / t_write / 1e9)
+            counts[f"storm_{tag}_write"] = step["kernel_launches"]
+            # 512 KiB runs take K3 at the pinned point, 8 KiB runs K2's
+            # flat entry
+            entry = "fused_hier_acc_call" if size == BIG \
+                else "gf_encode_with_crc_w32"
+            if step["kernel_launches"][entry] <= 0 or \
+                    step["cross_pg_launches"] <= 0:
+                raise AssertionError(f"storm {tag} writes: no {entry} "
+                                     f"launch across PGs: {step}")
+            report[f"{tag}_write"] = step
+            for missing in STORM_LOSSES:
+                name = f"storm_{tag}_lose{''.join(map(str, missing))}"
+                bs.reset_launch_counts()
+                prof.reset()
+                before = storm_snapshot(queue, prof)
+                res = storm_recover(backends, objs, missing)
+                res.update(storm_counts(bs, queue, prof, before))
+                counts[name] = res["kernel_launches"]
+                if counts[name]["gf_bitmatmul"] <= 0 or \
+                        res["decode_launches"] <= 0:
+                    raise AssertionError(f"{name}: no K1 decode launch")
+                report[name] = res
+                print(f"# {name}: {res['rebuilt_bytes']} B rebuilt in "
+                      f"{res['wall_s']:.4f} s, {res['rebuilt_GBps']:.3f} "
+                      f"GB/s, {res['decode_launches']} decode launches, "
+                      f"{res['cross_pg_launches']} cross-PG", flush=True)
+            report[f"{tag}_queue"] = queue.status()
+        finally:
+            queue.close()
+    if report["storm_64KiB_lose3"]["cross_pg_launches"] < 1:
+        raise AssertionError("the small-object storm coalesced no decode "
+                             "across PGs")
+    # CLAY k=8 m=4 d=11: one chunk lost, repaired through the queue (K4)
+    ck, cm, cd = CLAY_PROFILES["k8m4d11"]
+    store = MemStore()
+    store.mount()
+    queue = ECLaunchQueue(window_us=STORM_WINDOW_US, device=dev)
+    try:
+        backends = storm_pgs(dev, queue, "clay",
+                             {"k": str(ck), "m": str(cm), "d": str(cd)},
+                             N_CLAY_STORM_PGS, store)
+        t0 = time.perf_counter()
+        objs = storm_write(backends, rng, BIG, N_CLAY_STORM_OBJECTS)
+        t_write = time.perf_counter() - t0
+        bs.reset_launch_counts()
+        prof.reset()
+        before = storm_snapshot(queue, prof)
+        res = storm_recover(backends, objs, (CLAY_STORM_LOST,))
+        res.update(storm_counts(bs, queue, prof, before))
+        res["host_encode_write_s"] = t_write
+        res["clay_repairs"] = sum(be.repair_status()["clay_repairs"]
+                                  for be in backends)
+        counts["storm_clay_k8m4d11"] = res["kernel_launches"]
+        if counts["storm_clay_k8m4d11"]["gf_bitmatmul_stream"] <= 0 or \
+                res["repair_launches"] <= 0 or \
+                res["clay_repairs"] != len(objs):
+            raise AssertionError(f"CLAY storm did not repair through K4: "
+                                 f"{res}")
+        report["storm_clay_k8m4d11"] = res
+        print(f"# storm_clay_k8m4d11: {res['rebuilt_bytes']} B rebuilt in "
+              f"{res['wall_s']:.4f} s, {res['rebuilt_GBps']:.3f} GB/s, "
+              f"{res['repair_launches']} repair launches", flush=True)
+    finally:
+        queue.close()
+    report["phase_s"] = time.perf_counter() - t_phase
+    return counts, report
 
 
 # Graph times of the two K3 rows before K3's redesign (PERF.md §6:
@@ -1294,13 +1578,19 @@ def main() -> int:
         counts["w32_sweep"], w32_rows = phase_w32_sweep()
         k1_table = k1_thread_bytes_table(dev, rng)
         counts["clay_repair"], clay = phase_clay_repair(dev, rng)
+        pin_point(tmp / "pinned_storm.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        storm_counts, storm = phase_recovery_storm(dev, rng)
         ab = phase_ab()
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         phase = row.pop("phase")
-        row["launches"] = counts[phase][row.pop("counter")]
+        counter = row.pop("counter")
+        row["launches"] = counts[phase][counter]
+        row["recovery_storm_launches"] = sum(
+            c[counter] for c in storm_counts.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -1317,6 +1607,9 @@ def main() -> int:
     print(json.dumps({"w32_sweep": w32_rows, "k1_thread_bytes": k1_table}),
           flush=True)
     print(json.dumps({"clay_repair": clay}), flush=True)
+    print(json.dumps({"recovery_storm": storm,
+                      "recovery_storm_launch_counts": storm_counts}),
+          flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -399,3 +399,169 @@ def test_autotune_sweep_on_card(cuda_device, monkeypatch):
     again = reg.factory("torch", {"k": "8", "m": "3",
                                   "device": str(cuda_device)})
     assert again.fused_point() == best and not calls
+
+
+# -- recovery through the launch queue (phase H's path) ----------------------
+
+def _storm(device, plugin, profile, n_pgs, n_objects, chunk, missing,
+           window_us=1e6):
+    """n_pgs backends sharing one ECLaunchQueue on `device`: write
+    n_objects objects of two stripes a PG through the queue, lose
+    `missing`, and recover every PG's objects with every PG's
+    recover_shards_submit before any recover_shards_finalize.  Returns
+    (the rebuilt shards by (pg, name, shard), the queue's status, the
+    kernel launches during the recovery)."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
+    from ceph_tpu_torch.osd.ec_transaction import PGTransaction, shard_oid
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.osd.types import eversion_t, hobject_t, pg_t
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.store import MemStore
+    from ceph_tpu_torch.store.object_store import Transaction
+    queue = ECLaunchQueue(window_us=window_us, device=device)
+    try:
+        store = MemStore()
+        store.mount()
+        bes = []
+        for p in range(n_pgs):
+            prof = dict(profile)
+            if plugin == "torch":
+                prof["device"] = str(device)
+            codec = ErasureCodePluginRegistry.instance().factory(plugin,
+                                                                 prof)
+            if plugin == "torch":
+                _pin(codec, "kernel")
+            k = codec.get_data_chunk_count()
+            bes.append(ECBackend(
+                codec, StripeInfo(k * chunk, chunk),
+                LocalShardBackend(store, pg_t(3, p),
+                                  codec.get_chunk_count()),
+                launch_queue=queue, device=device))
+        rng = np.random.default_rng(77)
+        acks = []
+        for i in range(n_objects):
+            for p, be in enumerate(bes):
+                txn = PGTransaction()
+                txn.write(hobject_t(pool=3, name=f"o{i}"), 0, rng.integers(
+                    0, 256, 2 * be.k * chunk, dtype=np.uint8))
+                be.submit_transaction(txn, eversion_t(1, i + 1),
+                                      lambda: acks.append(1))
+        assert len(acks) == n_pgs * n_objects
+        lost = {}
+        for p, be in enumerate(bes):
+            for i in range(n_objects):
+                for s in missing:
+                    g = shard_oid(hobject_t(pool=3, name=f"o{i}"), s)
+                    lost[(p, f"o{i}", s)] = \
+                        store.read(be.shards.cids[s], g).copy()
+                    t = Transaction()
+                    t.remove(g)
+                    store.queue_transactions(be.shards.cids[s], [t])
+        pushed = {}
+        bs.reset_launch_counts()
+        recs = [be.recover_shards_submit(
+            [(hobject_t(pool=3, name=f"o{i}"), list(missing))
+             for i in range(n_objects)],
+            lambda o, p=p: (lambda s, d, h: pushed.__setitem__(
+                (p, o.name, s), np.asarray(d).copy())))
+            for p, be in enumerate(bes)]
+        for be, rec in zip(bes, recs):
+            assert all(e is None for e in
+                       be.recover_shards_finalize(rec).values())
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        assert pushed.keys() == lost.keys()
+        for key, want in lost.items():
+            np.testing.assert_array_equal(pushed[key], want)
+        return pushed, queue.status(), bs.launch_counts()
+    finally:
+        queue.close()
+
+
+def test_queued_recovery_storm_on_card_matches_cpu(cuda_device):
+    """Two PGs sharing one queue, torch k=8 m=3, shards {0, 9} lost:
+    the rebuilt shards on the card equal the same storm on the CPU
+    plain versions (and the lost bytes); the decodes ran as K1 launches
+    and coalesced the two PGs."""
+    cpu = torch.device("cpu")
+    for missing in ((3,), (0, 9)):
+        got, st, launches = _storm(cuda_device, "torch",
+                                   {"k": "8", "m": "3"}, 2, 3, 2048,
+                                   missing)
+        want, st_cpu, _ = _storm(cpu, "torch", {"k": "8", "m": "3"}, 2, 3,
+                                 2048, missing)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+        assert launches["gf_bitmatmul"] >= 1
+        assert st["decode_launches"] == st_cpu["decode_launches"] >= 1
+        assert st["cross_pg_launches"] >= 1
+
+
+def test_queued_clay_repair_on_card_matches_cpu(cuda_device):
+    """CLAY k=8 m=4 d=11, two PGs, one chunk lost: repaired from repair
+    planes through the queue as one K4 launch, equal to the CPU storm."""
+    got, st, launches = _storm(cuda_device, "clay",
+                               {"k": "8", "m": "4", "d": "11"}, 2, 2,
+                               4096, (2,))
+    want, _, _ = _storm(torch.device("cpu"), "clay",
+                        {"k": "8", "m": "4", "d": "11"}, 2, 2, 4096, (2,))
+    for key in want:
+        np.testing.assert_array_equal(got[key], want[key])
+    assert launches["gf_bitmatmul_stream"] == st["repair_launches"] == 1
+    assert st["cross_pg_launches"] == 1
+
+
+def test_queue_window_worker_launches_on_card(cuda_device):
+    """The window worker launches from its own thread: two PGs' decodes
+    left pending launch when the window expires, on the queue's card,
+    and demux equal to the CPU decode."""
+    import time
+
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    reg = ErasureCodePluginRegistry.instance()
+    queue = ECLaunchQueue(window_us=2000.0, device=cuda_device)
+    try:
+        rng = np.random.default_rng(5)
+        cpu = reg.factory("torch", {"k": "4", "m": "2", "device": "cpu"})
+        tickets, want = [], []
+        for owner, w in ((1, 4096), (2, 1000)):
+            codec = reg.factory("torch", {"k": "4", "m": "2",
+                                          "device": str(cuda_device)})
+            data = rng.integers(0, 256, (4, w), dtype=np.uint8)
+            dense = np.concatenate([data, cpu.encode_chunks(data)])
+            dense[1] = 0
+            want.append(cpu.decode_chunks(dense, [1]))
+            tickets.append(queue.submit_decode(codec, dense, [1],
+                                               owner=owner))
+        deadline = time.time() + 10
+        while queue.status()["launches"] < 1 and time.time() < deadline:
+            time.sleep(0.005)
+        assert all(t.launched for t in tickets)
+        for t, w in zip(tickets, want):
+            np.testing.assert_array_equal(t.result(), w)
+        st = queue.status()
+        assert st["decode_launches"] == st["cross_pg_launches"] == 1
+    finally:
+        queue.close()
+
+
+def test_cuda_queue_and_backend_without_gpu_raise(cuda_device, monkeypatch):
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.osd.types import pg_t
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.store import MemStore
+    codec = ErasureCodePluginRegistry.instance().factory(
+        "clay", {"k": "4", "m": "2", "d": "5"})
+    store = MemStore()
+    store.mount()
+    shards = LocalShardBackend(store, pg_t(1, 0), 6)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ECLaunchQueue(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ECBackend(codec, StripeInfo(4 * 1024, 1024), shards)
