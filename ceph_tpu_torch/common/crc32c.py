@@ -1,12 +1,15 @@
-"""crc32c (Castagnoli) — the data-plane checksum, on numpy tables.
+"""crc32c (Castagnoli) — the data-plane checksum.
 
 Same conventions as the reference's `bufferlist::crc32c`
 (src/include/buffer.h:1199, src/common/crc32c.cc): reflected polynomial
 0x82F63B78, caller-supplied seed, no final xor.
 
-No native library: everything runs on numpy, vectorised so that a
-whole shard row costs a few thousand array operations rather than one
-Python step per byte.  The crc is GF(2)-linear in (seed, bytes):
+`crc32c`, `crc32c_rows`, `crc32c_zeros` and `crc32c_combine` call the
+native library (common/native.py: SSE4.2 or slice-by-8 over
+native/crc32c.c) when it builds.  Without a C compiler they run on
+numpy tables, which give the same values: vectorised so that a whole
+shard row costs a few thousand array operations rather than one Python
+step per byte.  The crc is GF(2)-linear in (seed, bytes):
 
     crc(B, seed) = A_|B| . seed  ^  L(B),      L(B) = crc(B, 0)
     L(B1 || B2)  = A_|B2| . L(B1)  ^  L(B2)
@@ -21,11 +24,13 @@ b = A . e_b), built for powers of two by squaring and cached.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
 import numpy as np
 
+from . import native
 from .util import next_pow2
 
 POLY_REFLECTED = 0x82F63B78
@@ -90,6 +95,11 @@ def advance_op(nbytes: int) -> np.ndarray:
 def crc32c_zeros(crc: int, length: int) -> int:
     """Advance `crc` over `length` zero bytes in O(log length)."""
     crc &= 0xFFFFFFFF
+    if length == 0:
+        return crc
+    lib = native.load()
+    if lib is not None:
+        return lib.ceph_tpu_crc32c_zeros(crc, length)
     j = 0
     while length:
         if length & 1:
@@ -134,6 +144,11 @@ def crc32c_rows(rows: np.ndarray, seeds) -> list[int]:
     rows = np.ascontiguousarray(rows, dtype=np.uint8)
     if rows.ndim == 1:
         rows = rows[None]
+    lib = native.load()
+    if lib is not None:
+        n = rows.shape[1]
+        return [lib.ceph_tpu_crc32c(int(s) & 0xFFFFFFFF, _ptr(rows[r]), n)
+                for r, s in enumerate(seeds)]
     lin = _linear_rows(rows)
     seeds = np.array([int(s) & 0xFFFFFFFF for s in seeds], dtype=np.uint32)
     out = apply_op(advance_op(rows.shape[1]), seeds) ^ lin
@@ -148,3 +163,18 @@ def crc32c(data, crc: int = 0xFFFFFFFF) -> int:
     else:
         buf = np.frombuffer(bytes(data), dtype=np.uint8)
     return crc32c_rows(buf[None], [crc])[0]
+
+
+def crc32c_combine(crc_a: int, crc_b: int, len_b: int) -> int:
+    """crc of A||B from crc(A) (seeded arbitrarily) and crc(B) (seeded 0)."""
+    lib = native.load()
+    if lib is not None:
+        return lib.ceph_tpu_crc32c_combine(crc_a & 0xFFFFFFFF,
+                                           crc_b & 0xFFFFFFFF, len_b)
+    return crc32c_zeros(crc_a, len_b) ^ (crc_b & 0xFFFFFFFF)
+
+
+def _ptr(row: np.ndarray):
+    """A contiguous uint8 row as the library's `const uint8_t *`,
+    without a copy."""
+    return ctypes.cast(row.ctypes.data, ctypes.c_char_p)

@@ -3,16 +3,19 @@
 The CPU erasure-code plugins (ec/plugins/ec_isa.py, ec_jerasure.py) get
 their GF(2^8) region multiply from the C sources `native/gf8.c` and
 `native/crc32c.c`, the role of the reference's ISA-L / gf-complete
-SIMD kernels.  At first use the sources are compiled with `cc`, with
-the flags of `native/Makefile`, into one shared library under
-`ceph_tpu_torch/build/` (listed in .gitignore), named by a hash of the
-sources and flags; `native/` itself is only read.
+SIMD kernels, and common/crc32c.py its host crc32c (SSE4.2 or
+slice-by-8), zero advance and combine.  At first use the sources are
+compiled with `cc`, with the flags of `native/Makefile`, into one
+shared library under `ceph_tpu_torch/build/` (listed in .gitignore),
+named by a hash of the sources and flags; `native/` itself is only
+read.
 
 When no C compiler is there or the build fails, `gf8_matvec` returns
-None and gf.gf_matvec runs its numpy table path, which gives the same
-bytes (the role of the reference's table fallback).  This is a host
-library, not a device kernel; `available()` says which implementation
-runs, so a measurement can require the native one.
+None and gf.gf_matvec runs its numpy table path, and common/crc32c.py
+its numpy tables; both give the same bytes (the role of the
+reference's table fallback).  This is a host library, not a device
+kernel; `available()` says which implementation runs, so a
+measurement can require the native one.
 """
 
 from __future__ import annotations
@@ -82,6 +85,15 @@ def load() -> ctypes.CDLL | None:
             lib = ctypes.CDLL(str(build()))
         except (OSError, RuntimeError, subprocess.SubprocessError):
             return None
+        lib.ceph_tpu_crc32c.restype = ctypes.c_uint32
+        lib.ceph_tpu_crc32c.argtypes = [
+            ctypes.c_uint32, ctypes.c_char_p, ctypes.c_size_t]
+        lib.ceph_tpu_crc32c_zeros.restype = ctypes.c_uint32
+        lib.ceph_tpu_crc32c_zeros.argtypes = [ctypes.c_uint32,
+                                              ctypes.c_uint64]
+        lib.ceph_tpu_crc32c_combine.restype = ctypes.c_uint32
+        lib.ceph_tpu_crc32c_combine.argtypes = [
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint64]
         lib.gf8_init.restype = None
         lib.gf8_init.argtypes = []
         lib.gf8_encode.restype = None

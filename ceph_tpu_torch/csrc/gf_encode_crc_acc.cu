@@ -2,7 +2,8 @@
 // data (k, n) over GF(2^8) and crc32c linear parts L of all k+m shard
 // rows, from one launch, by one per-block body: the kernel template
 // below, instantiated once for K3 (kAcc) and twice for K2 (the shape
-// branches of kLaneTables).
+// branches of kLaneTables).  K5 crc32c_rows, at the end of the file,
+// runs the same crc machinery with no parity, one warp a block.
 //
 // K2 writes L = crc(block, 0) of every B-byte block of every shard row.
 // It replaces three Pallas kernels that compute that function and
@@ -566,6 +567,107 @@ int launch(const void* tables, const void* in, void* parity, void* lout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 crc32c_rows: one L = crc(body, 0) per row of many byte rows of
+// different lengths, the deep-scrub verify (ceph_tpu_torch/osd/scrub.py).
+// It replaces the jitted jnp program `_rows_l` of `crc32c_rows_device`
+// (ceph_tpu/ops/crc32c_linear.py:189, :202), which front-pads the rows
+// to pow2 buckets, computes one L per 2 KiB block by the tile matrix and
+// folds them with the log-depth combine, one launch per bucket.
+//
+// Here the rows' bodies (whole B-byte blocks; the host folds the tails)
+// are laid end to end with no padding, and row_ends holds each row's
+// cumulative block end.  Scrub rows share no block grid (a chunk mixes
+// objects and shard widths), so K3's one warp per shard row of a
+// column would idle most warps; instead each warp takes one B-byte
+// block of the concatenation at a time, wherever it lies: it searches
+// its row, stages the block into its own padded row of shared memory,
+// computes its L by K3's lane crc tables, chains and nibble fold
+// (lane_piece_crc, apply_nibbles), advances it by the row's blocks
+// after it (the base-256 digits of k3_ops) and XORs it into the row's
+// slot, which the wrapper zero-fills on the same stream.  The thread
+// block builds the lane tables and the fold's nibble tables once and
+// its warps stride over the grid's blocks; offsets are 64-bit.
+constexpr int kRowsThreads = 256;       // 8 warps, a staged block each
+constexpr int kRowsMinBlocks = 3;
+
+inline long long rows_smem_bytes(int B) {
+  return 4LL * (256 * 32 + kNibWords +
+                static_cast<long long>(kRowsThreads / 32) * k3_row_words(B));
+}
+
+__global__ void __launch_bounds__(kRowsThreads, kRowsMinBlocks)
+crc32c_rows_kernel(const uint8_t* __restrict__ in,
+                   unsigned long long* __restrict__ lout,
+                   const uint32_t* __restrict__ ops,
+                   const int64_t* __restrict__ row_ends, int nrows,
+                   int64_t nblocks, int B, int ndigits) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int wpp = B / 128;
+  const int pad = k3_pad(B);
+  const int chains = k3_chains(B);
+  uint32_t* ltab = smem;                       // 256 * 32 words
+  uint32_t* nib = ltab + 256 * 32;             // kNibWords
+  uint32_t* row = nib + kNibWords + warp * k3_row_words(B);
+  const uint32_t* digits = ops + kOpCols;
+  build_lane_crc_table(ltab, lane, warp, nwarps);
+  for (int it = threadIdx.x; it < kFoldItems; it += blockDim.x) {
+    uint32_t c[4];
+    fold_item_load(ops, it, c);
+    fold_item_store(nib, it, c);
+  }
+  __syncthreads();
+  const uint32_t* lt = ltab + lane;
+  const uint32_t* chain = nib + 8 * 16 * 32;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * nwarps;
+  for (int64_t blk = static_cast<int64_t>(blockIdx.x) * nwarps + warp;
+       blk < nblocks; blk += stride) {
+    // stage the block, 16 bytes a lane and load, into the padded row
+    const uint4* src = reinterpret_cast<const uint4*>(in + blk * B);
+    for (int v = lane; v < B / 16; v += 32) {
+      const uint4 x = __ldg(src + v);
+      const int w = 4 * v;
+      row[w + (w / wpp) * pad] = x.x;
+      row[w + 1 + ((w + 1) / wpp) * pad] = x.y;
+      row[w + 2 + ((w + 2) / wpp) * pad] = x.z;
+      row[w + 3 + ((w + 3) / wpp) * pad] = x.w;
+    }
+    // the row of this block: the first whose end lies past it (rows
+    // with no body share their end with the row before and are skipped)
+    int lo = 0, hi = nrows - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (row_ends[mid] > blk) hi = mid;
+      else lo = mid + 1;
+    }
+    const int64_t dist = row_ends[lo] - 1 - blk;   // blocks after this one
+    __syncwarp();
+    const uint32_t lcrc = lane_piece_crc<true>(row + lane * (wpp + pad), lt,
+                                               chain, wpp, chains);
+    uint32_t crc = apply_nibbles(nib + lane, 32, lcrc);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      crc ^= __shfl_xor_sync(0xFFFFFFFFu, crc, o);
+#pragma unroll
+    for (int i = 0; i < kMaxDigits; ++i) {
+      const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
+      if (i < ndigits && c != 0) {
+        uint32_t v = __ldg(digits + (i * 256 + c) * 32 + lane) &
+                     (0u - ((crc >> lane) & 1u));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+        crc = v;
+      }
+    }
+    if (lane == 0)
+      atomicXor(lout + lo, static_cast<unsigned long long>(crc));
+    __syncwarp();          // the row is restaged by the next block
+  }
+}
+
 }  // namespace
 
 // K2.  tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
@@ -614,6 +716,51 @@ extern "C" int ctt_gf_encode_crc_acc(const void* tables, const void* in,
     return cudaErrorInvalidValue;
   return launch<true, true>(tables, in, parity, lacc, ops, run_ends, nruns,
                             m, k, n, B, ndigits, smem, stream);
+}
+
+// K5.  in (nblocks * B,) uint8: the rows' bodies laid end to end; lout
+// (nrows,) uint64, ZERO on entry, each uint32 L zero-extended; ops:
+// k3_ops(B) (the fold and chain operators, then `ndigits` <= 4 digit
+// tables; every row < 256^ndigits blocks); row_ends (nrows,) int64,
+// non-decreasing, the last == nblocks.  All contiguous on the device,
+// 16-byte aligned; B % 128 == 0 and nblocks > 0.  Returns the CUDA
+// error of the launch.
+extern "C" int ctt_crc32c_rows(const void* in, void* lout, const void* ops,
+                               const void* row_ends, int nrows,
+                               long long nblocks, int B, int ndigits,
+                               void* stream) {
+  const long long smem = rows_smem_bytes(B);
+  if (smem > kSmemLimit || B % 128 || B <= 0 || nblocks < 1 || nrows < 1 ||
+      ndigits < 1 || ndigits > kMaxDigits)
+    return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long per_sm = kRowsMinBlocks;
+  if (per_sm > kMaxThreadsPerSm / kRowsThreads)
+    per_sm = kMaxThreadsPerSm / kRowsThreads;
+  if (per_sm > kSmSmem / (smem + kSmemReserved))
+    per_sm = kSmSmem / (smem + kSmemReserved);
+  if (per_sm < 1) per_sm = 1;
+  const int warps = kRowsThreads / 32;
+  long long blocks = (nblocks + warps - 1) / warps;
+  if (blocks > per_sm * sms) blocks = per_sm * sms;
+  static int granted = 48 * 1024;
+  const int sm = static_cast<int>(smem);
+  if (sm > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        crc32c_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = sm;
+  }
+  crc32c_rows_kernel<<<static_cast<unsigned>(blocks), kRowsThreads, sm,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in),
+      static_cast<unsigned long long*>(lout),
+      static_cast<const uint32_t*>(ops),
+      static_cast<const int64_t*>(row_ends), nrows,
+      static_cast<int64_t>(nblocks), B, ndigits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 #ifdef CTT_K3_PHASES

@@ -6,7 +6,7 @@ Semantics kept exactly; types made idiomatic (numpy uint8 buffers instead
 of bufferlist, dict/set instead of std::map/std::set, exceptions carrying
 errno instead of negative returns).
 
-All codecs are systematic: chunks 0..k-1 carry the
+All codecs are systematic: chunks 0..k-1 (after chunk_mapping) carry the
 object's data, chunks k..k+m-1 carry parity.  An object is padded out to
 k * get_chunk_size(len) before encoding (reference diagram,
 ErasureCodeInterface.h:39-78).
@@ -62,6 +62,13 @@ class Profile:
             raise ErasureCodeError(
                 errno.EINVAL, f"could not convert {key}={v!r} to int")
 
+    def to_bool(self, key: str, default: bool) -> bool:
+        v = self.data.get(key)
+        if v is None or v == "":
+            self.data[key] = str(default).lower()
+            return default
+        return v.lower() in ("true", "yes", "1", "on")
+
 
 class ErasureCodeInterface(abc.ABC):
     """Abstract codec (reference ErasureCodeInterface.h:170).
@@ -101,6 +108,25 @@ class ErasureCodeInterface(abc.ABC):
         stripe have the same size. (reference :281)"""
 
     @abc.abstractmethod
+    def minimum_to_decode(
+        self, want_to_read: set[int], available: set[int],
+    ) -> dict[int, list[tuple[int, int]]]:
+        """Which chunks (and which (offset, length) sub-chunk ranges of
+        each, in sub-chunk units) must be fetched to decode
+        `want_to_read` given `available`.  Plain MDS codes return k
+        chunks with the full range; CLAY returns partial ranges.
+        Raises ErasureCodeError(EIO) if unrecoverable. (reference :297)"""
+
+    def minimum_to_decode_with_cost(
+        self, want_to_read: set[int], available: dict[int, int],
+    ) -> set[int]:
+        """Like minimum_to_decode but pick the cheapest set given a
+        fetch-cost per available chunk. (reference :326)"""
+        # Default: ignore costs beyond preferring wanted chunks.
+        got = self.minimum_to_decode(want_to_read, set(available))
+        return set(got)
+
+    @abc.abstractmethod
     def encode(self, want_to_encode: set[int], data: bytes | memoryview,
                ) -> dict[int, "np.ndarray"]:
         """Pad + split `data` into k data chunks, compute m parity chunks,
@@ -117,3 +143,25 @@ class ErasureCodeInterface(abc.ABC):
                ) -> dict[int, "np.ndarray"]:
         """Reconstruct the wanted chunks from the available ones.
         (reference :407)"""
+
+    @abc.abstractmethod
+    def get_chunk_mapping(self) -> list[int]:
+        """Permutation of chunk index -> shard position, empty list for
+        identity.  (reference :448)"""
+
+    def decode_concat(self, chunks: dict[int, "np.ndarray"]) -> bytes:
+        """Decode all data chunks and concatenate them in order.
+        (reference :460)"""
+        import numpy as np
+        k = self.get_data_chunk_count()
+        sizes = {len(v) for v in chunks.values()}
+        assert len(sizes) == 1, "mixed chunk sizes"
+        out = self.decode(set(range(k)), chunks, sizes.pop())
+        return b"".join(np.asarray(out[i], dtype=np.uint8).tobytes()
+                        for i in range(k))
+
+    def create_rule(self, name: str, crush) -> int:
+        """Create a CRUSH rule that places k+m chunks on independent
+        devices (reference ErasureCodeInterface.h:223 /
+        ErasureCode.cc:64-83)."""
+        raise NotImplementedError

@@ -145,5 +145,8 @@ def load() -> ctypes.CDLL:
         lib.ctt_gf_encode_crc_acc.argtypes = [vp, vp, vp, vp, vp, vp, i32,
                                               i32, i32, i64, i32, i32, vp]
         lib.ctt_gf_encode_crc_acc.restype = i32
+        lib.ctt_crc32c_rows.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32,
+                                        vp]
+        lib.ctt_crc32c_rows.restype = i32
         _lib = lib
         return lib

@@ -817,9 +817,121 @@ def gf_encode_with_crc_w32_fold(tables: torch.Tensor, chunks: torch.Tensor,
                                                        block))
 
 
+# ----------------------------------------------------------------------------
+# K5: one crc32c L per row of byte rows laid end to end
+# ----------------------------------------------------------------------------
+
+K5_THREADS = 256             # threads of a K5 block: 8 warps
+
+
+def k5_smem(block: int) -> int:
+    """Bytes of shared memory of one K5 block (csrc/gf_encode_crc_acc.cu
+    rows_smem_bytes mirrors it): the lane crc tables, the fold's nibble
+    tables and one staged block-byte row a warp, padded as K3's.
+    Raises ValueError where the block is not a positive multiple of 128
+    or the layout exceeds SMEM_LIMIT."""
+    _check_block("crc32c_rows", block)
+    smem = 4 * (256 * 32 + K3_NIB_WORDS + (K5_THREADS // 32)
+                * (block // 4 + 32 * k3_pad(block)))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"crc32c_rows: {smem} bytes of shared memory "
+                         "exceed one block's")
+    return smem
+
+
+def _check_rows(data, row_ends, block: int) -> tuple[int, int]:
+    if not isinstance(data, torch.Tensor):
+        raise TypeError(f"data must be a torch.Tensor, got {type(data)}")
+    _check("data", data, data.device, torch.uint8, 1)
+    _check("row_ends", row_ends, data.device, torch.int64, 1)
+    if row_ends.numel() == 0:
+        raise ValueError("crc32c_rows needs at least one row")
+    if data.numel() % block:
+        raise ValueError(f"crc32c_rows: {data.numel()} bytes are not whole "
+                         f"{block}-byte blocks")
+    return row_ends.numel(), data.numel() // block
+
+
+def crc32c_rows_l_plain(data: torch.Tensor, row_ends: torch.Tensor,
+                        block: int = cl.SCRUB_BLOCK) -> torch.Tensor:
+    """Plain version of K5 (and of the JAX package's `_rows_l`): every
+    block's L by subblock_crc_bits_w32, then one combine_crcs_pow2 over
+    each row's blocks, rows of one block count folded together."""
+    nrows, nblocks = _check_rows(data, row_ends, block)
+    dev = data.device
+    out = torch.zeros(nrows, dtype=torch.int64, device=dev)
+    if nblocks == 0:
+        return out
+    wb = block // 4
+    lbits = cl.subblock_crc_bits_w32(data.view(torch.int32).reshape(1, -1),
+                                     _cmat_w32(wb, dev), wb)
+    bounds = _run_bounds(row_ends)
+    if any(b < a for a, b in bounds) or bounds[-1][1] != nblocks:
+        raise ValueError("row_ends must be non-decreasing and end at the "
+                         "block count")
+    by_count: dict[int, list[int]] = {}
+    for i, (a, b) in enumerate(bounds):
+        if b > a:
+            by_count.setdefault(b - a, []).append(i)
+    for cnt, idxs in by_count.items():
+        starts = torch.tensor([bounds[i][0] for i in idxs], device=dev)
+        sel = lbits[starts[:, None] + torch.arange(cnt, device=dev)]
+        out[torch.tensor(idxs, device=dev)] = cl.bits_to_u32(
+            cl.combine_crcs_pow2(sel, block))
+    return out
+
+
+def crc32c_rows_l(data: torch.Tensor, row_ends: torch.Tensor,
+                  block: int = cl.SCRUB_BLOCK) -> torch.Tensor:
+    """K5 (the device program of the JAX package's crc32c_rows_device):
+    one L = crc(body, 0) per row, (nrows,) int64.  `data` (N,) uint8
+    holds the rows' bodies laid end to end, each a whole number of
+    `block`-byte blocks; `row_ends` (nrows,) int64 on its device the
+    cumulative block ends (non-decreasing, the last == N / block).  The
+    plain version checks the ends; on the card they are built and
+    checked on the host by _rows_launch_args, as K3's are."""
+    nrows, nblocks = _check_rows(data, row_ends, block)
+    if data.device.type == "cpu":
+        return crc32c_rows_l_plain(data, row_ends, block)
+    dev = data.device
+    k5_smem(block)
+    # the kernel XORs into the L slots: zero them first, in stream order
+    lout = torch.zeros(nrows, dtype=torch.int64, device=dev)
+    if nblocks == 0:
+        return lout
+    from . import _build
+    lib = _build.load()
+    ops = _k3_ops_tensor(block, dev)
+    rc = lib.ctt_crc32c_rows(data.data_ptr(), lout.data_ptr(),
+                             ops.data_ptr(), row_ends.data_ptr(), nrows,
+                             nblocks, block, K3_DIGITS, _stream_handle(dev))
+    if rc != 0:
+        raise RuntimeError(f"crc32c_rows launch failed: CUDA error {rc}")
+    crc32c_rows_l.launches += 1
+    return lout
+
+
+crc32c_rows_l.launches = 0
+
+
+def _rows_launch_args(row_blocks, nblocks: int, device: torch.device):
+    """(staged, row_ends) for one K5 launch: the cumulative block ends
+    of rows of `row_blocks` blocks each, which must add up to the
+    launch's `nblocks`, as int64 on `device` through a pinned
+    non-blocking copy.  `staged` must stay referenced until the stream
+    has passed the copy."""
+    counts = np.asarray(list(row_blocks), dtype=np.int64)
+    if counts.size == 0 or (counts < 0).any():
+        raise ValueError(f"bad row block counts {counts.tolist()}")
+    if int(counts.sum()) != nblocks:
+        raise ValueError(f"row_ends must end at the block count: rows of "
+                         f"{int(counts.sum())} blocks, {nblocks} staged")
+    return stage(np.cumsum(counts), device)
+
+
 KERNEL_WRAPPERS = (gf_bitmatmul, fused_hier_call, gf_encode_with_crc_w32,
                    fused_hier_acc_call, gf_encode_with_crc,
-                   gf_bitmatmul_stream)
+                   gf_bitmatmul_stream, crc32c_rows_l)
 
 
 def launch_counts() -> dict[str, int]:
@@ -835,11 +947,26 @@ def reset_launch_counts() -> None:
 # host <-> device staging
 # ----------------------------------------------------------------------------
 
-def stage(host: np.ndarray, device: torch.device):
+def stage(host, device: torch.device):
     """(pinned host tensor, device tensor) for a numpy array: the copy
     to the card is queued on the current stream without waiting.  The
     pinned tensor must stay referenced until the stream has passed the
-    copy (the caller keeps it in its handle)."""
+    copy (the caller keeps it in its handle).  `host` may also be a
+    list of 1-D arrays of one dtype: they are gathered end to end
+    straight into the one pinned buffer."""
+    if isinstance(host, (list, tuple)):
+        parts = [np.ascontiguousarray(p).ravel() for p in host]
+        if device.type == "cpu":
+            t = torch.from_numpy(np.concatenate(parts))
+            return t, t
+        dtype = torch.from_numpy(np.empty(0, parts[0].dtype)).dtype
+        pinned = torch.empty(sum(p.size for p in parts), dtype=dtype,
+                             pin_memory=True)
+        flat, off = pinned.numpy(), 0
+        for p in parts:
+            flat[off:off + p.size] = p
+            off += p.size
+        return pinned, pinned.to(device, non_blocking=True)
     host = np.ascontiguousarray(host)
     if device.type == "cpu":
         t = torch.from_numpy(host)

@@ -187,3 +187,47 @@ def fold_run_crc(lbody: int, body_bytes: int, seed: int,
         acc = _crc.crc32c_zeros(acc, len(tail)) ^ _crc.crc32c(tail, 0)
         n += len(tail)
     return _crc.crc32c_zeros(seed & 0xFFFFFFFF, n) ^ acc
+
+
+SCRUB_BLOCK = 2048       # bytes per L-block of the scrub rows path
+
+
+def crc32c_rows_device(row_list, seeds, block_bytes: int = SCRUB_BLOCK,
+                       device="cuda") -> list[int]:
+    """crc32c of many independent byte rows of different lengths, with
+    one K5 launch for all of them (ops/bitsliced.crc32c_rows_l) — the
+    deep-scrub verify path (osd/scrub.py), the JAX package's
+    crc32c_rows_device.
+
+    Each row splits into a body of whole `block_bytes` blocks and a
+    tail.  The bodies are gathered end to end into one pinned staging
+    buffer and go to the device; the host folds each row's seed advance
+    and tail (fold_run_crc), so the device/host byte split is the
+    reference's.  Unlike the reference, the bodies are not front-padded
+    to pow2 buckets with one launch a bucket: nothing here compiles per
+    width, so one launch takes the rows at their real widths.  No row
+    with a body, no launch.  `device="cpu"` runs K5's plain version."""
+    from .. import resolve_device
+    from . import bitsliced as bs
+    dev = resolve_device(device)
+    rows = [np.ascontiguousarray(r, dtype=np.uint8).ravel()
+            for r in row_list]
+    bodies = [r.size - r.size % block_bytes for r in rows]
+    ls = [0] * len(rows)
+    if any(bodies):
+        # the pinned buffers stay referenced until .tolist() has waited
+        # for the stream
+        staged, data = bs.stage([r[:b] for r, b in zip(rows, bodies)], dev)
+        staged_ends, row_ends = bs._rows_launch_args(
+            [b // block_bytes for b in bodies], sum(bodies) // block_bytes,
+            dev)
+        ls = bs.crc32c_rows_l(data, row_ends, block_bytes).tolist()
+    return [fold_run_crc(ls[i], bodies[i], int(seeds[i]),
+                         rows[i][bodies[i]:].tobytes())
+            for i in range(len(rows))]
+
+
+def crc32c_rows_plain(row_list, seeds,
+                      block_bytes: int = SCRUB_BLOCK) -> list[int]:
+    """crc32c_rows_device on K5's plain version (the CPU)."""
+    return crc32c_rows_device(row_list, seeds, block_bytes, device="cpu")

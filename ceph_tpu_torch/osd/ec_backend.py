@@ -248,7 +248,7 @@ class _Recovery:
 
 def _build_ec_perf(name: str):
     """The backend's own counter set (reference _build_ec_perf; the
-    mesh and deep-scrub counters come with those modules)."""
+    mesh counters come with the mesh plane)."""
     from ..common.perf_counters import PerfCountersBuilder
     return (PerfCountersBuilder(name)
             .add_u64_counter("ec_drain_submits", "pipeline drains launched")
@@ -271,6 +271,10 @@ def _build_ec_perf(name: str):
             .add_u64_counter("ec_host_queue_drains",
                              "drains routed through the per-host "
                              "launch queue (cross-PG batching)")
+            .add_u64_counter("ec_scrub_device_bytes",
+                             "deep-scrub bytes crc'd on device")
+            .add_u64_counter("ec_scrub_host_bytes",
+                             "deep-scrub bytes crc'd on host")
             .add_u64_counter("ec_repair_helper_bytes",
                              "survivor/helper bytes read for repair")
             .add_u64_counter("ec_repair_reconstructed_bytes",
@@ -443,8 +447,13 @@ class ECBackend:
 
     # -- object metadata helpers -------------------------------------------
 
+    def _fetch_hinfo(self, oid: hobject_t) -> HashInfo | None:
+        """hinfo is replicated on every shard; one probe sweep (local
+        shard first, rest in parallel — see ShardBackend.probe)."""
+        return self.shards.probe(oid, self.n)[0]
+
     def _get_hinfo(self, oid: hobject_t) -> HashInfo:
-        return self.shards.probe(oid, self.n)[0] or HashInfo.make(self.n)
+        return self._fetch_hinfo(oid) or HashInfo.make(self.n)
 
     def _get_size(self, oid: hobject_t) -> int:
         """True (unpadded) object size from the hinfo xattr; falls back

@@ -52,6 +52,11 @@ class PGObjectOp:
     truncate_to: int | None = None
     delete: bool = False
     attrs: dict[str, bytes | None] = field(default_factory=dict)
+    # omap (replicated pools only — the reference rejects omap on EC
+    # pools via the SUPPORTS_OMAP pool flag, and so does the OSD op
+    # switch here).  Mutations keep their op-vector order: rm-then-set
+    # and set-then-clear must commit different final states.
+    omap_ops: list[tuple] = field(default_factory=list)
 
 
 class PGTransaction:
@@ -74,11 +79,24 @@ class PGTransaction:
         op = self.obj(oid)
         op.writes.clear()
         op.attrs.clear()
+        op.omap_ops.clear()
         op.truncate_to = None
         op.delete = True
 
     def setattr(self, oid: hobject_t, name: str, value: bytes | None) -> None:
         self.obj(oid).attrs[name] = value
+
+    def omap_setkeys(self, oid: hobject_t, kv: dict[bytes, bytes]) -> None:
+        self.obj(oid).omap_ops.append(("set", dict(kv)))
+
+    def omap_rmkeys(self, oid: hobject_t, keys) -> None:
+        self.obj(oid).omap_ops.append(("rm", list(keys)))
+
+    def omap_clear(self, oid: hobject_t) -> None:
+        self.obj(oid).omap_ops.append(("clear",))
+
+    def omap_setheader(self, oid: hobject_t, data: bytes) -> None:
+        self.obj(oid).omap_ops.append(("header", bytes(data)))
 
 
 # -- plan --------------------------------------------------------------------
@@ -173,6 +191,14 @@ def shard_oid(oid: hobject_t, shard: int,
     from .types import NO_GEN
     return ghobject_t(oid, NO_GEN if generation is None else generation,
                       shard)
+
+
+@dataclass
+class PreparedWrite:
+    """One stripe-aligned extent whose shard chunks are ready to write."""
+    oid: hobject_t
+    extent: Extent
+    shards: np.ndarray  # (k+m, extent.length / k)
 
 
 def generate_transactions(

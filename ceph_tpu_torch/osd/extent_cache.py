@@ -11,7 +11,7 @@ same range may be pinned by several queued ops.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -72,6 +72,10 @@ class ExtentCache:
                     break
             if not exts:
                 del self._objs[oid]
+
+    def clear_object(self, oid: hobject_t) -> None:
+        with self._lock:
+            self._objs.pop(oid, None)
 
     def __len__(self) -> int:
         with self._lock:

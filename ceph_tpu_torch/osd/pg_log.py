@@ -9,13 +9,13 @@ the old size, delete keeps the old generation, setattr keeps prior
 values), plus the can_rollback_to / rollforward bounds ECBackend
 advances in try_finish_rmw (reference ECBackend.cc:2115-2134).
 
-The log is REPLICATED: every sub-write carries its entries (reference
+The log is REPLICATED: every ECSubWrite carries its entries (reference
 ECSubWrite.log_entries, src/osd/ECMsgTypes.h:38) and each shard persists
 them durably alongside the data — omap of a per-PG meta object, the
 analog of the reference's pglog omap keys in the pg meta collection
-(src/osd/PGLog.cc _write_log_and_missing).  This module keeps the part
-the EC write path uses; peering, rollback and split/merge of shard logs
-are not part of it.
+(src/osd/PGLog.cc _write_log_and_missing) — so a new primary can collect
+shard logs and select the authoritative one after failover (reference
+PeeringState::calc_acting / GetLog).
 """
 
 from __future__ import annotations
@@ -128,6 +128,23 @@ class PGLog:
             self.can_rollback_to = v
         return newly
 
+    def rollback_to(self, v: eversion_t) -> list[LogEntry]:
+        """Drop entries newer than v; returns them newest-first so the
+        caller can undo their store effects.  Only legal if v >=
+        rollforward_to (can't undo what was rolled forward)."""
+        assert v >= self.rollforward_to, (v, self.rollforward_to)
+        undone = sorted((e for e in self.entries if e.version > v),
+                        key=lambda e: e.version, reverse=True)
+        self.entries = [e for e in self.entries if e.version <= v]
+        self.head = v
+        return undone
+
+    def trim(self, to: eversion_t) -> None:
+        """Discard entries <= to (reference log trimming)."""
+        self.entries = [e for e in self.entries if e.version > to]
+        if to > self.tail:
+            self.tail = to
+
 
 class ShardPGLog:
     """The shard-resident replicated log: entries + pg_info persisted in
@@ -135,6 +152,11 @@ class ShardPGLog:
     transaction as the data they describe, so the write and its log
     entry are atomic (reference ECBackend::handle_sub_write appends
     log_entries into the sub-write's ObjectStore::Transaction).
+
+    Also owns shard-local rollback: a divergent shard undoes entries
+    past the authoritative head using only its own persisted rollback
+    state (the reference's "EC ops must be locally rollbackable"
+    contract, ecbackend.rst:9-27).
     """
 
     def __init__(self, store, cid, shard: int):
@@ -197,6 +219,167 @@ class ShardPGLog:
             txn.remove(ghobject_t(e.oid, e.rollback.kept_generation,
                                   self.shard))
         self.store.queue_transactions(self.cid, [txn])
+
+    def set_les(self, les: int) -> None:
+        self.info.last_epoch_started = max(
+            self.info.last_epoch_started, les)
+        txn = _txn()
+        txn.touch(self.moid)
+        txn.setattr(self.moid, INFO_ATTR,
+                    json.dumps(self.info.to_json()).encode())
+        self.store.queue_transactions(self.cid, [txn])
+
+    def adopt(self, entries: list[LogEntry], head: eversion_t,
+              les: int) -> None:
+        """Replace this shard's log with the authoritative one (a stale
+        shard rejoining: its data is healed by recovery, its history by
+        adoption — reference PGLog::merge_log for the divergent-free
+        case)."""
+        txn = _txn()
+        txn.touch(self.moid)
+        txn.omap_clear(self.moid)
+        if entries:
+            txn.omap_setkeys(self.moid, {
+                _omap_key(e): json.dumps(entry_to_wire(e)).encode()
+                for e in entries})
+        self.log = PGLog()
+        for e in sorted(entries, key=lambda e: e.version):
+            self.log.add(e)
+        self.info.last_update = head
+        self.info.last_epoch_started = max(
+            self.info.last_epoch_started, les)
+        txn.setattr(self.moid, INFO_ATTR,
+                    json.dumps(self.info.to_json()).encode())
+        self.store.queue_transactions(self.cid, [txn])
+
+    # -- PG split (reference PG::split_into / PGLog::split_out_child:
+    #    the parent's log partitions by which child each entry's object
+    #    rehashes into; the child inherits the parent's info bounds) ----
+
+    def merge_split(self, entries: list[LogEntry], last_update: eversion_t,
+                    les: int) -> None:
+        """Adopt split-inherited entries WITHOUT clobbering anything
+        this shard already logged (a child shard may have received
+        backfill or even new writes before the local parent's split
+        sweep ran — unlike `adopt`, which replaces).  The info bounds
+        only ratchet up: inheriting the parent's last_update /
+        last_epoch_started is what lets child peering fence out shards
+        that never saw the parent's history."""
+        existing = {_omap_key(e) for e in self.log.entries}
+        add = sorted((e for e in entries
+                      if _omap_key(e) not in existing),
+                     key=lambda e: e.version)
+        txn = _txn()
+        txn.touch(self.moid)
+        if add:
+            txn.omap_setkeys(self.moid, {
+                _omap_key(e): json.dumps(entry_to_wire(e)).encode()
+                for e in add})
+            merged = sorted(self.log.entries + add,
+                            key=lambda e: e.version)
+            newlog = PGLog()
+            for e in merged:
+                newlog.add(e)
+            newlog.tail = self.log.tail
+            newlog.can_rollback_to = self.log.can_rollback_to
+            newlog.rollforward_to = self.log.rollforward_to
+            self.log = newlog
+        self.info.last_update = max(self.info.last_update, last_update)
+        self.info.last_epoch_started = max(
+            self.info.last_epoch_started, les)
+        txn.setattr(self.moid, INFO_ATTR,
+                    json.dumps(self.info.to_json()).encode())
+        self.store.queue_transactions(self.cid, [txn])
+
+    def fold_in(self, entries: list[LogEntry]) -> int:
+        """PG-merge log union (the inverse of split_out): adopt a
+        dying child's entries WITHOUT moving this shard's peering
+        bounds.  Only entries at or below our own last_update union in
+        (as recovery history); newer child entries are dropped here —
+        their data travels as unlogged backfill instead — because a
+        bound ratchet would be non-uniform across the parent's acting
+        shards (each folds whichever children IT held) and the peering
+        min-last_update rule would roll the ratcheted shards back,
+        undoing folded writes as if they were divergent.  Returns the
+        number of entries adopted."""
+        fold = [e for e in entries
+                if e.version <= self.info.last_update]
+        if fold:
+            self.merge_split(fold, self.info.last_update,
+                             self.info.last_epoch_started)
+        return len(fold)
+
+    def split_out(self, names: set[str]) -> list[LogEntry]:
+        """Drop (and return) the entries whose object moved to a child
+        PG.  The parent's last_update is NOT lowered: it still bounds
+        every entry the parent ever acked, and the peering min-rule
+        needs all parent shards to agree on it."""
+        moved = [e for e in self.log.entries if e.oid.name in names]
+        if not moved:
+            return []
+        kept = [e for e in self.log.entries if e.oid.name not in names]
+        txn = _txn()
+        txn.touch(self.moid)
+        txn.omap_rmkeys(self.moid, [_omap_key(e) for e in moved])
+        newlog = PGLog()
+        for e in kept:
+            newlog.add(e)
+        newlog.head = self.log.head
+        newlog.tail = self.log.tail
+        newlog.can_rollback_to = self.log.can_rollback_to
+        newlog.rollforward_to = self.log.rollforward_to
+        self.log = newlog
+        self.store.queue_transactions(self.cid, [txn])
+        return moved
+
+    def rollback_to(self, v: eversion_t) -> list[hobject_t]:
+        """Undo local entries newer than v.  Pure appends truncate back
+        (and restore the prior hinfo xattr); overwrites/deletes restore
+        the object generation snapshotted at write time; only legacy
+        entries with neither are removed and reported, so the primary's
+        recovery rebuilds them from the authoritative shards.
+        Returns the oids needing such recovery."""
+        from .ec_util import HINFO_KEY
+
+        undone = [e for e in self.log.entries if e.version > v]
+        undone.sort(key=lambda e: e.version, reverse=True)
+        removed: list[hobject_t] = []
+        txn = _txn()
+        for e in undone:
+            goid = ghobject_t(e.oid, shard=self.shard)
+            rb = e.rollback
+            has_gen = rb.kept_generation is not None and \
+                self.store.exists(self.cid, ghobject_t(
+                    e.oid, rb.kept_generation, self.shard))
+            if has_gen:
+                # the generation IS the pre-entry object (data + attrs)
+                gen_goid = ghobject_t(e.oid, rb.kept_generation,
+                                      self.shard)
+                txn.remove(goid)
+                txn.rename(gen_goid, goid)
+            elif (e.op is LogOp.MODIFY and rb.pure_append
+                    and rb.old_chunk_size is not None):
+                if rb.old_chunk_size == 0 and rb.hinfo_old is None:
+                    txn.remove(goid)
+                else:
+                    txn.truncate(goid, rb.old_chunk_size)
+                    if rb.hinfo_old is not None:
+                        txn.setattr(goid, HINFO_KEY, rb.hinfo_old)
+                    else:
+                        txn.rmattr(goid, HINFO_KEY)
+            else:
+                txn.remove(goid)
+                if e.oid not in removed:
+                    removed.append(e.oid)
+            txn.omap_rmkeys(self.moid, [_omap_key(e)])
+        self.log.rollforward_to = min(self.log.rollforward_to, v)
+        self.log.rollback_to(v)
+        self.info.last_update = v
+        txn.touch(self.moid)
+        txn.setattr(self.moid, INFO_ATTR,
+                    json.dumps(self.info.to_json()).encode())
+        self.store.queue_transactions(self.cid, [txn])
+        return removed
 
 
 def _txn():

@@ -7,10 +7,17 @@ type constants the backends switch on.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
+from enum import IntEnum
 
 NO_SHARD = -1
 NO_GEN = 0xFFFFFFFFFFFFFFFF
+
+
+class PoolType(IntEnum):
+    """pg_pool_t types (reference osd_types.h TYPE_REPLICATED/TYPE_ERASURE)."""
+    REPLICATED = 1
+    ERASURE = 3
 
 
 @dataclass(frozen=True, order=True)
@@ -23,6 +30,9 @@ class hobject_t:
     snap: int = 0
     hash: int = 0
 
+    def with_hash(self, h: int) -> "hobject_t":
+        return replace(self, hash=h & 0xFFFFFFFF)
+
 
 @dataclass(frozen=True, order=True)
 class ghobject_t:
@@ -32,6 +42,9 @@ class ghobject_t:
     hobj: hobject_t = field(default_factory=hobject_t)
     generation: int = NO_GEN
     shard: int = NO_SHARD
+
+    def no_gen(self) -> "ghobject_t":
+        return replace(self, generation=NO_GEN)
 
 
 @dataclass(frozen=True, order=True)

@@ -2,7 +2,7 @@
 
 The fake backend unit/standalone tests run against for speed; also the
 store of chip_smoke.py's main path.  Thread-safe; commits are
-immediate (fsync-free).
+immediate (fsync-free), callbacks fire synchronously in queue order.
 """
 
 from __future__ import annotations
@@ -23,21 +23,26 @@ class _Object:
     data: bytearray = field(default_factory=bytearray)
     xattrs: dict[str, bytes] = field(default_factory=dict)
     omap: dict[bytes, bytes] = field(default_factory=dict)
+    omap_header: bytes = b""
 
     def clone(self) -> "_Object":
         return _Object(bytearray(self.data), dict(self.xattrs),
-                       dict(self.omap))
+                       dict(self.omap), self.omap_header)
 
 
 class MemStore(ObjectStore):
     def __init__(self) -> None:
         self._colls: dict[spg_t, dict[ghobject_t, _Object]] = {}
         self._lock = threading.RLock()
+        self._mounted = False
 
     # -- lifecycle ----------------------------------------------------------
 
     def mount(self) -> None:
-        """Nothing to load: the store lives in memory."""
+        self._mounted = True
+
+    def umount(self) -> None:
+        self._mounted = False
 
     # -- collections --------------------------------------------------------
 
@@ -45,14 +50,23 @@ class MemStore(ObjectStore):
         with self._lock:
             self._colls.setdefault(cid, {})
 
+    def remove_collection(self, cid: spg_t) -> None:
+        with self._lock:
+            self._colls.pop(cid, None)
+
     def list_collections(self) -> list[spg_t]:
         with self._lock:
             return sorted(self._colls)
+
+    def collection_exists(self, cid: spg_t) -> bool:
+        with self._lock:
+            return cid in self._colls
 
     # -- transactions -------------------------------------------------------
 
     def queue_transactions(self, cid: spg_t,
                            txns: Iterable[Transaction]) -> None:
+        callbacks = []
         with self._lock:
             coll = self._colls.get(cid)
             if coll is None:
@@ -60,6 +74,9 @@ class MemStore(ObjectStore):
             for t in txns:
                 for op in t.ops:
                     self._apply(coll, op)
+                callbacks.extend(t.on_commit)
+        for cb in callbacks:
+            cb()
 
     def _obj(self, coll, oid) -> _Object:
         o = coll.get(oid)
@@ -76,6 +93,12 @@ class MemStore(ObjectStore):
             if len(o.data) < end:
                 o.data.extend(bytes(end - len(o.data)))
             o.data[op.offset:end] = op.data.tobytes()
+        elif isinstance(op, os_.OpZero):
+            o = self._obj(coll, op.oid)
+            end = op.offset + op.length
+            if len(o.data) < end:
+                o.data.extend(bytes(end - len(o.data)))
+            o.data[op.offset:end] = bytes(op.length)
         elif isinstance(op, os_.OpTruncate):
             o = self._obj(coll, op.oid)
             if op.size < len(o.data):
@@ -98,6 +121,16 @@ class MemStore(ObjectStore):
                 coll[op.dst] = src
         elif isinstance(op, os_.OpOmapSet):
             self._obj(coll, op.oid).omap.update(op.kv)
+        elif isinstance(op, os_.OpOmapRmKeys):
+            o = self._obj(coll, op.oid)
+            for k in op.keys:
+                o.omap.pop(k, None)
+        elif isinstance(op, os_.OpOmapClear):
+            o = self._obj(coll, op.oid)
+            o.omap.clear()
+            o.omap_header = b""
+        elif isinstance(op, os_.OpOmapSetHeader):
+            self._obj(coll, op.oid).omap_header = op.data
         else:
             raise TypeError(f"unknown transaction op {op!r}")
 
@@ -139,6 +172,10 @@ class MemStore(ObjectStore):
     def omap_get(self, cid, oid) -> dict[bytes, bytes]:
         with self._lock:
             return dict(self._get(cid, oid).omap)
+
+    def omap_get_header(self, cid, oid) -> bytes:
+        with self._lock:
+            return self._get(cid, oid).omap_header
 
     def list_objects(self, cid) -> list[ghobject_t]:
         with self._lock:

@@ -24,10 +24,12 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    GF(2^8) multiply-add per coefficient and column, one crc table step
    per shard byte) over the int8 rate (1,979 TOP/s), whichever is
    larger.  No single PyTorch call
-   computes these functions, so library_ms is null.  Eleven rows: K1
-   (encode, decode, the device entry), K2's three entries (hier, w32
+   computes these functions, so library_ms is null.  Thirteen rows:
+   K1 (encode, decode, the device entry), K2's three entries (hier, w32
    flat, and the byte entry of Pallas #6 at 8+3 x 512 KiB), K3 (one run,
-   two runs) and K4 (Pallas #7's counterpart: 8 x 512 KiB -> 3 at one
+   two runs), K5 (the deep-scrub crc of the JAX package's jitted
+   `_rows_l`: a 64 MiB chunk of 132 x 512 KiB rows, and a chunk of
+   mixed rows) and K4 (Pallas #7's counterpart: 8 x 512 KiB -> 3 at one
    pass, and the CLAY repair matrices of phase G, 64 x 176 over 32
    objects' 8 KiB sub-chunks and 81 x 270 over 32 x 6473 B at two
    passes).  Then the K3 table: K3 on one 512 KiB run at B = 1,
@@ -112,7 +114,21 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    Rebuilt GB/s, wall time, the queue's status (launches, submissions a
    launch, cross-PG launches) and the flight recorder's launches by
    kind are printed with the card's name and power limit.
-10. A/B (phase F): the native CPU library must have built; then
+10. Deep scrub (phase I): the reference's deep-scrub bench setting,
+   torch k=8 m=3 at the pinned K3 point, objects of 8 MiB with a 16 KiB
+   stripe unit (1 MiB shard rows), 64 MiB scrub chunks.  Four PGs of 16
+   objects (704 MiB of shards) and a fifth PG, with a 1 KiB stripe
+   unit, of 8 objects of 8 MiB + 777 B, whose shard rows end in a 1 KiB
+   tail.  A deep scrub of the clean PGs must find nothing, with one K5
+   launch a chunk (14), the whole blocks counted as device bytes and
+   the tails as host bytes.  Then bytes flip in 8 shards of different
+   objects (data and parity shards, one byte in a tail), and a scrub
+   with repair must find each as crc_mismatch on its shard and rebuild
+   it (K1) to its original bytes.  Then a scrub of the same PGs on the
+   host crc32c (the native library), and the device path again.  Walls
+   and verified GB/s of both paths, the K5 launches, the byte split and
+   the repair's K1 launches are printed.
+11. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
@@ -120,8 +136,8 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
 its own phase and in the recovery storm), the main paths', the
-benchmark's, the w32 sweep's, the CLAY repair's, the recovery storm's
-and the A/B's lines, and as the last line
+benchmark's, the w32 sweep's, the CLAY repair's, the recovery storm's,
+the deep scrub's and the A/B's lines, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
 """
@@ -412,6 +428,25 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                    lambda: bs.gf_bitmatmul_stream_plain(enc, data),
                    [(M, run)], gf_bytes(M, run), gf_ops(M, run), flush),
     ]
+    # K5 at a 64 MiB scrub chunk of 4 MiB objects (132 rows of 512 KiB)
+    # and at a chunk of mixed rows: 66 of 1 MiB (phase I's), 11 of
+    # 600 KiB, 11 of one block and 3 empty
+    for label, counts in (
+            ("132 x 512 KiB", [run // 2048] * 132),
+            ("mixed: 66 x 1 MiB, 11 x 600 KiB, 11 x 2 KiB, 3 empty",
+             [512] * 66 + [300] * 11 + [0, 0, 0] + [1] * 11)):
+        n = sum(counts) * 2048
+        body = torch.from_numpy(np.frombuffer(rng.bytes(n), dtype=np.uint8)
+                                .copy()).to(dev)
+        ends = torch.tensor(np.cumsum(counts), dtype=torch.int64,
+                            device=dev)
+        rows.append(kernel_row(
+            f"crc32c_rows (K5, {label})", "csrc/gf_encode_crc_acc.cu",
+            "ceph_tpu/ops/crc32c_linear.py:189", "crc32c_rows_l",
+            "deep_scrub",
+            lambda b=body, e=ends: bs.crc32c_rows_l(b, e),
+            lambda b=body, e=ends: bs.crc32c_rows_l_plain(b, e),
+            [(len(counts),)], n + 16 * len(counts), n, flush))
     for name, (ck, cm, cd) in CLAY_PROFILES.items():
         codec_c = clay_codec(ck, cm, cd)
         mat = codec_c.repair_matrix(0)
@@ -815,6 +850,191 @@ def phase_recovery_storm(dev, rng) -> tuple[dict, dict]:
     finally:
         queue.close()
     report["phase_s"] = time.perf_counter() - t_phase
+    return counts, report
+
+
+# Phase I: the reference's deep-scrub bench setting (bench.py
+# time_deep_scrub at its card sizes): k=8 m=3, objects of 8 MiB, a
+# 16 KiB stripe unit, so 1 MiB shard rows, scrub chunks of
+# SCRUB_CHUNK_BYTES (64 MiB)
+SCRUB_OBJECT = 8 << 20
+SCRUB_STRIPE_UNIT = 16 << 10
+N_SCRUB_PGS = 4
+N_SCRUB_OBJECTS = 16
+# tail objects: with a 4 or 16 KiB stripe unit every shard row is whole
+# 2 KiB blocks, so a fifth PG with a 1 KiB unit holds 8 objects of
+# 8 MiB + 777 B, whose rows end in a 1 KiB tail the host folds
+SCRUB_TAIL_UNIT = 1 << 10
+SCRUB_TAIL_SIZE = (8 << 20) + 777
+N_SCRUB_TAIL_OBJECTS = 8
+# the rot: (PG, object, shard), data and parity shards of different
+# objects, the last one a byte in a tail (5 bytes before the row's end)
+SCRUB_ROT = ((0, 1, 0), (0, 7, 9), (1, 2, 3), (1, 13, 10), (2, 5, 5),
+             (3, 0, 7), (3, 15, 1), (4, 3, 2))
+
+
+def scrub_pgs(dev, store) -> list:
+    """The backends of phase I on the card over one MemStore: torch k=8
+    m=3 at the pinned K3 point, N_SCRUB_PGS PGs with the 16 KiB stripe
+    unit and one with the 1 KiB unit of the tail objects."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.osd.types import pg_t
+    out = []
+    units = [SCRUB_STRIPE_UNIT] * N_SCRUB_PGS + [SCRUB_TAIL_UNIT]
+    for i, unit in enumerate(units):
+        codec = ErasureCodePluginRegistry.instance().factory(
+            "torch", {"k": str(K), "m": str(M), "device": str(dev)})
+        shards = LocalShardBackend(store, pg_t(3, i), K + M)
+        out.append(ECBackend(codec, StripeInfo(K * unit, unit), shards,
+                             device=dev))
+    return out
+
+
+def scrub_chunks(row_bytes: list[int]) -> int:
+    """K5 launches scrub_pg makes over objects of `row_bytes` shard rows
+    (k+m rows each): its chunk budget closes a chunk at
+    SCRUB_CHUNK_BYTES."""
+    from ceph_tpu_torch.osd.scrub import SCRUB_CHUNK_BYTES
+    chunks = budget = 0
+    for n in row_bytes:
+        budget += n * (K + M)
+        if budget >= SCRUB_CHUNK_BYTES:
+            chunks, budget = chunks + 1, 0
+    return chunks + (budget > 0)
+
+
+def scrub_all(backends, oids, **kw) -> tuple[list, float]:
+    """Deep-scrub every PG of phase I; (results, wall seconds)."""
+    from ceph_tpu_torch.osd import scrub
+    t0 = time.perf_counter()
+    res = [scrub.scrub_pg(be, o, deep=True, **kw)
+           for be, o in zip(backends, oids)]
+    return res, time.perf_counter() - t0
+
+
+def phase_deep_scrub(dev, rng) -> tuple[dict, dict]:
+    """Phase I: deep scrub of 4 PGs x 16 objects of 8 MiB (704 MiB of
+    shards) and one PG of 8 objects of 8 MiB + 777 B, written on the
+    card.  A clean scrub (one K5 launch a 64 MiB chunk, tails folded on
+    the host) must find nothing; then 8 shards rot (SCRUB_ROT) and a
+    scrub with repair must find each as crc_mismatch on its shard and
+    rebuild it (K1) to its original bytes; then the same PGs on the
+    host crc32c, and the device path once more.  Returns (launch counts
+    by step, the report)."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.osd.ec_transaction import PGTransaction, shard_oid
+    from ceph_tpu_torch.osd.types import eversion_t, hobject_t
+    from ceph_tpu_torch.store import MemStore
+    from ceph_tpu_torch.store.object_store import Transaction
+
+    store = MemStore()
+    store.mount()
+    backends = scrub_pgs(dev, store)
+    sizes = [SCRUB_OBJECT] * N_SCRUB_PGS + [SCRUB_TAIL_SIZE]
+    n_objs = [N_SCRUB_OBJECTS] * N_SCRUB_PGS + [N_SCRUB_TAIL_OBJECTS]
+    oids, acks = [], []
+    t0 = time.perf_counter()
+    for p, (be, size, n) in enumerate(zip(backends, sizes, n_objs)):
+        oids.append([hobject_t(pool=3, name=f"s{p}_{i}") for i in range(n)])
+        with be.pipeline():
+            for i, o in enumerate(oids[-1]):
+                txn = PGTransaction()
+                txn.write(o, 0, np.frombuffer(rng.bytes(size),
+                                              dtype=np.uint8))
+                be.submit_transaction(txn, eversion_t(1, i + 1),
+                                      lambda: acks.append(1))
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    if len(acks) != sum(n_objs):
+        raise AssertionError(f"{len(acks)} of {sum(n_objs)} writes acked")
+    rows = [[be.shards.stat(0, o) for o in os_]
+            for be, os_ in zip(backends, oids)]
+    shard_bytes = sum(sum(r) for r in rows) * (K + M)
+    tail_bytes = sum(n % 2048 for r in rows for n in r) * (K + M)
+    want_k5 = sum(scrub_chunks(r) for r in rows)
+    counts = {}
+    report = {"card": nvidia_smi_line(), "pgs": len(backends),
+              "objects": sum(n_objs), "shard_bytes": shard_bytes,
+              "write_s": t_write}
+
+    def check_clean(res, tag):
+        bad = [e for r in res for e in r.errors]
+        if bad or sum(r.objects for r in res) != sum(n_objs):
+            raise AssertionError(f"{tag}: {len(bad)} errors, first "
+                                 f"{bad[:1]!r}")
+
+    # 1. the clean PGs
+    bs.reset_launch_counts()
+    res, wall = scrub_all(backends, oids)
+    counts["deep_scrub"] = bs.launch_counts()
+    check_clean(res, "clean scrub")
+    dev_b = sum(r.device_bytes for r in res)
+    host_b = sum(r.host_bytes for r in res)
+    k5 = counts["deep_scrub"]["crc32c_rows_l"]
+    if dev_b + host_b != shard_bytes or host_b != tail_bytes or \
+            k5 != want_k5:
+        raise AssertionError(f"clean scrub: {dev_b} device + {host_b} host "
+                             f"bytes of {shard_bytes} ({tail_bytes} in "
+                             f"tails), {k5} K5 launches of {want_k5}")
+    report["device"] = {"wall_s": wall, "GBps": shard_bytes / wall / 1e9,
+                        "k5_launches": k5, "device_bytes": dev_b,
+                        "host_bytes": host_b}
+    # 2. rot: flip bytes in 8 shards
+    original, rotted = {}, set()
+    for p, i, s in SCRUB_ROT:
+        sh = backends[p].shards
+        g = shard_oid(oids[p][i], s)
+        data = sh.store.read(sh.cids[s], g)
+        original[(p, i, s)] = data.copy()
+        off = data.size - 5 if p == N_SCRUB_PGS else 4099
+        t = Transaction()
+        t.write(g, off, np.array([data[off] ^ 0xA5], dtype=np.uint8))
+        sh.store.queue_transactions(sh.cids[s], [t])
+        rotted.add((oids[p][i].name, s))
+    # 3. scrub with repair
+    bs.reset_launch_counts()
+    res, wall_r = scrub_all(backends, oids, repair=True)
+    counts["deep_scrub_repair"] = bs.launch_counts()
+    check_clean(res, "repair scrub")
+    found = {(e.oid.name, e.shard) for r in res for e in r.repaired
+             if e.kind == "crc_mismatch"}
+    kinds = {e.kind for r in res for e in r.repaired}
+    if found != rotted or kinds != {"crc_mismatch"}:
+        raise AssertionError(f"repair found {sorted(found)} ({kinds}), "
+                             f"rotted {sorted(rotted)}")
+    for (p, i, s), want in original.items():
+        sh = backends[p].shards
+        if not np.array_equal(sh.store.read(sh.cids[s],
+                                            shard_oid(oids[p][i], s)), want):
+            raise AssertionError(f"shard {s} of {oids[p][i].name} was not "
+                                 "restored")
+    k1 = counts["deep_scrub_repair"]["gf_bitmatmul"]
+    if k1 <= 0:
+        raise AssertionError("repair decoded through no K1 launch")
+    report["repair"] = {"wall_s": wall_r, "rotted": len(rotted),
+                        "repaired": len(found), "k1_launches": k1,
+                        "k5_launches":
+                        counts["deep_scrub_repair"]["crc32c_rows_l"]}
+    # 4. the host path (native crc32c) on the same PGs, then the device
+    # path once more
+    res, wall_h = scrub_all(backends, oids, use_device=False)
+    check_clean(res, "host scrub")
+    if sum(r.host_bytes for r in res) != shard_bytes:
+        raise AssertionError("host scrub did not verify every byte")
+    report["host"] = {"wall_s": wall_h, "GBps": shard_bytes / wall_h / 1e9}
+    res, wall_2 = scrub_all(backends, oids)
+    check_clean(res, "second device scrub")
+    report["device_again"] = {"wall_s": wall_2,
+                              "GBps": shard_bytes / wall_2 / 1e9}
+    print(f"# deep scrub: {shard_bytes} B verified; device path "
+          f"{wall:.4f} s {report['device']['GBps']:.3f} GB/s (again "
+          f"{wall_2:.4f} s {report['device_again']['GBps']:.3f} GB/s), "
+          f"host path {wall_h:.4f} s {report['host']['GBps']:.3f} GB/s; "
+          f"{k5} K5 launches, {dev_b} device B, {host_b} host B; repair "
+          f"{len(found)}/{len(rotted)} shards with {k1} K1 launches",
+          flush=True)
     return counts, report
 
 
@@ -1581,6 +1801,8 @@ def main() -> int:
         pin_point(tmp / "pinned_storm.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         storm_counts, storm = phase_recovery_storm(dev, rng)
+        scrub_counts, scrub = phase_deep_scrub(dev, rng)
+        counts.update(scrub_counts)
         ab = phase_ab()
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
@@ -1609,6 +1831,9 @@ def main() -> int:
     print(json.dumps({"clay_repair": clay}), flush=True)
     print(json.dumps({"recovery_storm": storm,
                       "recovery_storm_launch_counts": storm_counts}),
+          flush=True)
+    print(json.dumps({"deep_scrub": scrub,
+                      "deep_scrub_launch_counts": scrub_counts}),
           flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -565,3 +565,120 @@ def test_cuda_queue_and_backend_without_gpu_raise(cuda_device, monkeypatch):
         ECLaunchQueue(device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ECBackend(codec, StripeInfo(4 * 1024, 1024), shards)
+
+
+K5_LENGTHS = [0, 1, 2047, 2048, 2049, 8 << 10, (300 << 10) + 777,
+              (1 << 20) + 5]
+
+
+@pytest.mark.parametrize("block,counts", [
+    (2048, [256] * 132),                   # 132 x 512 KiB: one scrub chunk
+    (2048, [512] * 11 + [0, 3, 1]),        # 1 MiB rows: two-digit distances
+    (2048, [0, 0, 5, 0, 1]),               # empty rows first and between
+    (2048, [1]),                           # one block (distance 0)
+    (128, [70000, 3]),                     # a three-digit distance
+    (384, [7, 2, 30]),                     # odd pieces: two pad words
+    (1024, [5000, 1, 2])])
+def test_k5_matches_plain(cuda_device, block, counts):
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(sum(counts) + block)
+    data = rng.integers(0, 256, sum(counts) * block, dtype=np.uint8)
+    dev = torch.from_numpy(data).to(cuda_device)
+    ends = torch.tensor(np.cumsum(counts), dtype=torch.int64,
+                        device=cuda_device)
+    before = bs.crc32c_rows_l.launches
+    got = bs.crc32c_rows_l(dev, ends, block)
+    torch.cuda.synchronize()
+    assert bs.crc32c_rows_l.launches == before + 1
+    assert torch.equal(got, bs.crc32c_rows_l_plain(dev, ends, block))
+
+
+def test_k5_launch_args_on_card(cuda_device):
+    # the card takes row ends only through the host check
+    from ceph_tpu_torch.ops import bitsliced as bs
+    with pytest.raises(ValueError, match="bad row block counts"):
+        bs._rows_launch_args([2, -1, 3], 4, cuda_device)
+    with pytest.raises(ValueError, match="end at the block count"):
+        bs._rows_launch_args([1, 3], 5, cuda_device)
+    data = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, 6 * 2048, dtype=np.uint8)).to(cuda_device)
+    staged, ends = bs._rows_launch_args([2, 0, 4], 6, cuda_device)
+    got = bs.crc32c_rows_l(data, ends)
+    torch.cuda.synchronize()
+    del staged
+    assert ends.device.type == "cuda" and ends.tolist() == [2, 2, 6]
+    assert torch.equal(got, bs.crc32c_rows_l_plain(data, ends))
+
+
+def test_crc32c_rows_device_on_card_matches_host(cuda_device):
+    from ceph_tpu_torch.common import crc32c
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops import crc32c_linear as cl
+    rng = np.random.default_rng(23)
+    rows = [rng.integers(0, 256, n, dtype=np.uint8) for n in K5_LENGTHS]
+    seeds = [int(x) for x in rng.integers(0, 2 ** 32, len(rows))]
+    before = bs.crc32c_rows_l.launches
+    got = cl.crc32c_rows_device(rows, seeds, device=cuda_device)
+    assert bs.crc32c_rows_l.launches == before + 1
+    assert got == [crc32c.crc32c(r, s) for r, s in zip(rows, seeds)]
+    assert got == cl.crc32c_rows_plain(rows, seeds)
+    # no row with a body: no launch
+    small = rows[:3]
+    assert cl.crc32c_rows_device(small, seeds[:3], device=cuda_device) == \
+        [crc32c.crc32c(r, s) for r, s in zip(small, seeds)]
+    assert bs.crc32c_rows_l.launches == before + 1
+
+
+def test_scrub_with_repair_on_card_matches_cpu(cuda_device):
+    """Deep scrub of a card backend (torch k=8 m=3): K5 verifies, K1
+    repairs; errors, repaired list, byte split and bytes equal the same
+    PG on the CPU."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.osd import scrub
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
+    from ceph_tpu_torch.osd.ec_transaction import PGTransaction, shard_oid
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.osd.types import eversion_t, hobject_t, pg_t
+    from ceph_tpu_torch.store import MemStore
+    from ceph_tpu_torch.store.object_store import Transaction
+    out = []
+    for dev in (cuda_device, torch.device("cpu")):
+        codec = _pin(ErasureCodePluginRegistry.instance().factory(
+            "torch", {"k": "8", "m": "3", "device": str(dev)}), "kernel")
+        store = MemStore()
+        store.mount()
+        shards = LocalShardBackend(store, pg_t(1, 0), 11)
+        be = ECBackend(codec, StripeInfo(8 * 4096, 4096), shards)
+        rng = np.random.default_rng(31)
+        oids = []
+        for i in range(6):
+            txn = PGTransaction()
+            o = hobject_t(pool=1, name=f"s{i}")
+            txn.write(o, 0, rng.integers(0, 256, (1 << 20) + 777 * i,
+                                         dtype=np.uint8))
+            be.submit_transaction(txn, eversion_t(1, i + 1), lambda: None)
+            oids.append(o)
+        be.flush_pipeline()
+        want = {}
+        for i, s in ((1, 0), (3, 9), (5, 4)):
+            goid = shard_oid(oids[i], s)
+            want[(i, s)] = store.read(shards.cids[s], goid).copy()
+            t = Transaction()
+            t.write(goid, 4099, np.frombuffer(b"\x5a\xa5", dtype=np.uint8))
+            store.queue_transactions(shards.cids[s], [t])
+        bs.reset_launch_counts()
+        res = scrub.scrub_pg(be, oids, deep=True, repair=True,
+                             use_device=True, chunk_bytes=4 << 20)
+        counts = bs.launch_counts()
+        assert res.clean and len(res.repaired) == 3
+        for (i, s), w in want.items():
+            np.testing.assert_array_equal(
+                store.read(shards.cids[s], shard_oid(oids[i], s)), w)
+        assert scrub.scrub_pg(be, oids, deep=True).clean
+        out.append(([(e.oid.name, e.shard, e.kind, e.detail)
+                     for e in res.repaired], res.device_bytes,
+                    res.host_bytes, counts))
+    (rg, dg, hg, cg), (rc, dc, hc, _) = out
+    assert (rg, dg, hg) == (rc, dc, hc)
+    assert cg["crc32c_rows_l"] >= 2 and cg["gf_bitmatmul"] >= 1

@@ -104,11 +104,47 @@ def test_cpu_wrappers_do_not_count_launches():
                            torch.tensor([2], dtype=torch.int64))
     bs.gf_encode_with_crc(tables, chunks)
     bs.gf_bitmatmul_stream(tables, chunks)
+    bs.crc32c_rows_l(chunks.reshape(-1),
+                     torch.tensor([3, 8], dtype=torch.int64))
     assert bs.launch_counts() == {"gf_bitmatmul": 0, "fused_hier_call": 0,
                                   "gf_encode_with_crc_w32": 0,
                                   "fused_hier_acc_call": 0,
                                   "gf_encode_with_crc": 0,
-                                  "gf_bitmatmul_stream": 0}
+                                  "gf_bitmatmul_stream": 0,
+                                  "crc32c_rows_l": 0}
+
+
+def test_crc32c_rows_refuses_bad_operands():
+    data = torch.zeros(8192, dtype=torch.uint8)
+    ends = torch.tensor([1, 4], dtype=torch.int64)
+    with pytest.raises(ValueError, match="expected"):
+        bs.crc32c_rows_l(data, ends.to("meta"))
+    with pytest.raises(TypeError):
+        bs.crc32c_rows_l(data.to(torch.int32), ends)
+    with pytest.raises(TypeError):
+        bs.crc32c_rows_l(data.numpy(), ends)
+    with pytest.raises(ValueError, match="whole"):
+        bs.crc32c_rows_l(data[:3000], ends)
+    with pytest.raises(ValueError, match="at least one row"):
+        bs.crc32c_rows_l(data, ends[:0])
+    with pytest.raises(ValueError, match="non-decreasing"):
+        bs.crc32c_rows_l(data, torch.tensor([3, 1, 4], dtype=torch.int64))
+    with pytest.raises(ValueError, match="end at the block count"):
+        bs.crc32c_rows_l(data, torch.tensor([1, 3], dtype=torch.int64))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        bs.k5_smem(100)
+
+
+def test_k5_launch_args_refuse_bad_counts():
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="bad row block counts"):
+        bs._rows_launch_args([3, -1, 2], 4, cpu)
+    with pytest.raises(ValueError, match="bad row block counts"):
+        bs._rows_launch_args([], 0, cpu)
+    with pytest.raises(ValueError, match="end at the block count"):
+        bs._rows_launch_args([1, 2], 4, cpu)
+    _, ends = bs._rows_launch_args([1, 0, 3], 4, cpu)
+    assert ends.dtype == torch.int64 and ends.tolist() == [1, 1, 4]
 
 
 def test_extents_refuse_runs_of_another_k():
