@@ -3,7 +3,8 @@
 // rows, from one launch, by one per-block body: the kernel template
 // below, instantiated once for K3 (kAcc) and twice for K2 (the shape
 // branches of kLaneTables).  K5 crc32c_rows, at the end of the file,
-// runs the same crc machinery with no parity, one warp a block.
+// runs the same crc machinery with no parity, one warp a range of
+// blocks.
 //
 // K2 writes L = crc(block, 0) of every B-byte block of every shard row.
 // It replaces three Pallas kernels that compute that function and
@@ -142,8 +143,9 @@ inline long long block_smem_bytes(int m, int k, int B, bool lane_tables) {
 // thread 0 of every block stamps clock64() at its start, after its own
 // share of the table builds, after each block-wide step of its first
 // tile and after warp 0's first row, and %globaltimer at its start and
-// end, into the buffer the probe's entry sets.
-constexpr int kPhases = 8;
+// end, into the buffer the probe's entry sets.  K5's stamps are listed
+// at its kernel.
+constexpr int kPhases = 9;
 __device__ unsigned long long* g_k3_phases;
 __device__ inline unsigned long long global_ns() {
   unsigned long long t;
@@ -156,9 +158,15 @@ __device__ inline unsigned long long global_ns() {
       g_k3_phases[blockIdx.x * kPhases + (i)] = (v);                      \
   } while (0)
 #define K3_PROBE_SYNC() __syncthreads()
+#define K5_STAMP(i, v)                                                    \
+  do {                                                                    \
+    if (threadIdx.x == 0 && g_k3_phases)                                  \
+      g_k3_phases[blockIdx.x * kPhases + (i)] = (v);                      \
+  } while (0)
 #else
 #define K3_STAMP(i, v) do {} while (0)
 #define K3_PROBE_SYNC() do {} while (0)
+#define K5_STAMP(i, v) do {} while (0)
 #endif
 
 __device__ inline void cp_async4(unsigned dst, const uint32_t* src) {
@@ -342,7 +350,8 @@ __device__ inline void encode_staged(uint32_t* rows, const uint32_t* T,
   }
 }
 
-// L of lane l's piece (wpp words at p, from state 0) by its crc table
+// L of lane l's piece (wpp words at p, from state `seed`, 0 but for
+// K5's lane 0) by its crc table
 // (entry e at lt[32*e] with lane tables, else lt[e]): `chains`
 // independent chains over consecutive sub-pieces of wpp/chains words,
 // their lookups interleaved, each word XORed in whole before its four
@@ -353,10 +362,10 @@ template <bool kLaneTables>
 __device__ inline uint32_t lane_piece_crc(const uint32_t* p,
                                           const uint32_t* lt,
                                           const uint32_t* chain, int wpp,
-                                          int chains) {
+                                          int chains, uint32_t seed = 0u) {
   constexpr int kShift = kLaneTables ? 5 : 0;
   const int wpc = wpp / chains;
-  uint32_t crc[kMaxChains] = {0u, 0u, 0u, 0u};
+  uint32_t crc[kMaxChains] = {seed, 0u, 0u, 0u};
   for (int t = 0; t < wpc; ++t) {
     uint32_t x[kMaxChains];
 #pragma unroll
@@ -578,94 +587,370 @@ int launch(const void* tables, const void* in, void* parity, void* lout,
 // are laid end to end with no padding, and row_ends holds each row's
 // cumulative block end.  Scrub rows share no block grid (a chunk mixes
 // objects and shard widths), so K3's one warp per shard row of a
-// column would idle most warps; instead each warp takes one B-byte
-// block of the concatenation at a time, wherever it lies: it searches
-// its row, stages the block into its own padded row of shared memory,
-// computes its L by K3's lane crc tables, chains and nibble fold
-// (lane_piece_crc, apply_nibbles), advances it by the row's blocks
-// after it (the base-256 digits of k3_ops) and XORs it into the row's
-// slot, which the wrapper zero-fills on the same stream.  The thread
-// block builds the lane tables and the fold's nibble tables once and
-// its warps stride over the grid's blocks; offsets are 64-bit.
-constexpr int kRowsThreads = 256;       // 8 warps, a staged block each
-constexpr int kRowsMinBlocks = 3;
+// column would idle most warps.  Instead each warp takes one
+// contiguous range of the concatenation's blocks, the ranges balanced
+// to within one block, and walks it in order with a running L of the
+// row it is in:
+//
+//     L <- A_B . L ^ L(block)
+//
+// which costs nothing beyond the block's own L: lane 0 seeds its first
+// chain with L instead of 0 (lane_piece_crc, scrub_piece_crc), and the
+// chain and lane fold operators that carry that chain to the block's
+// end advance L by B bytes with it; the map is linear, so the result is
+// exact.  At a row end inside the range the warp XORs L into the row's
+// slot as it is and restarts from 0; at the range's end inside a row
+// it advances L once by the row's blocks after the range (the base-256
+// digit tables of k3_ops) and XORs it.  The row is searched once, at
+// the range's start; the walk then steps to the next row with a body
+// as it crosses a row end, the next row's end loaded ahead.  Rows that
+// span several ranges get one XOR from each, in any order, into the
+// slot that the wrapper zero-fills on the same stream.
+//
+// What bounds it on the H100.  The bytes take 20.7 us at a 64 MiB chunk
+// (3.35 TB/s).  K5's first design (one block at a time a warp,
+// grid-strided) took 72 us: tools/k3_phases.py --kernel k5 stamped its
+// first block at ~4.2k SM cycles of staging through registers, ~3.5k
+// of row search (8 dependent loads), ~5.9k of chains and fold and ~1.3k
+// of advance and atomic, paid again for each of a warp's ~11 blocks
+// with nothing in flight.  The redesign:
+//  * One row search and at most one digit advance a range, one atomic
+//    a row end met and one at the range's end (~warps + rows a launch,
+//    not one a block).  The search is the warp's (warp_row_search):
+//    32 probes a round, 2 rounds at 132 rows.
+//  * Two rows a warp and the bytes two blocks ahead: the range's first
+//    two blocks are queued at its start, and block i+2 into the row
+//    that block i leaves, so a block's copy flies while two blocks
+//    compute (cp.async.wait_group 1).
+//  * The scrub block compiles apart (kB = kScrubB): staging, chains and
+//    fold unrolled; its rows laid out with 4 pad words a lane piece, so
+//    16-byte cp.async fills them and each lane reads its piece in four
+//    16-byte loads that a quarter-warp takes from 32 distinct banks;
+//    kScrubChains = 2 chains of 8 words a lane (8 join lookups instead
+//    of 24; 1 chain ran as fast, 4 chains 6% slower).  Any other B runs
+//    K3's layout (k3_pad) and lane_piece_crc, B at run time.
+//  * Fewer, longer-lived thread blocks: one block of 32 warps an SM
+//    (two rows a warp and the tables fill its shared memory), so the
+//    lane crc tables and the fold's nibble tables are built once an SM
+//    instead of three times (3.1% of the first design's block time; left
+//    as they are).  The fold operators' gathers go out first, then the
+//    search, then the first copies; the tables are built while they
+//    fly.
+// After it the probe puts the first block staged at ~12.7k cycles and
+// the walk at ~5.5k cycles a block a warp, ~172 an SM: 2 KiB an SM in
+// that time is ~3.06 TB/s over 132 SMs, so the walk is bound by device
+// memory and the rest is the start.
+// rows_warps and rows_smem_bytes (ops/bitsliced.k5_warps and k5_smem,
+// the host's mirror) size the block by B; offsets are 64-bit.
+constexpr int kRowsMaxWarps = 32;       // one 1024-thread block an SM
+constexpr int kRowsMinBlocks = 1;
+constexpr long long kRowsTableBytes = 4LL * (256 * 32 + kNibWords);
+// The scrub block (crc32c_linear.SCRUB_BLOCK), which K5 compiles apart:
+// lane l's 16-word piece at word kScrubStride * l, 4 pad words after it,
+// so that a quarter-warp's 16-byte loads of their pieces hit 32
+// distinct banks (80-byte strides) and 16-byte cp.async fills them.
+constexpr int kScrubB = 2048;
+constexpr int kScrubStride = 20;
+constexpr int kScrubChains = 2;         // chains a lane, 8 words each
 
-inline long long rows_smem_bytes(int B) {
-  return 4LL * (256 * 32 + kNibWords +
-                static_cast<long long>(kRowsThreads / 32) * k3_row_words(B));
+// Words of one of a K5 warp's staged rows: the scrub block's layout, or
+// K3's (k3_row_words) at any other B.
+__host__ __device__ inline int rows_row_words(int B) {
+  return B == kScrubB ? 32 * kScrubStride : k3_row_words(B);
 }
 
-__global__ void __launch_bounds__(kRowsThreads, kRowsMinBlocks)
+// Warps of a K5 block: as many as one block's shared memory holds two
+// staged rows of B bytes each beside the tables, at most kRowsMaxWarps
+// (0: none fits).
+inline int rows_warps(int B) {
+  const long long w =
+      (kSmemLimit - kRowsTableBytes) / (8LL * rows_row_words(B));
+  return static_cast<int>(w < kRowsMaxWarps ? w : kRowsMaxWarps);
+}
+
+inline long long rows_smem_bytes(int B) {
+  return kRowsTableBytes + 8LL * rows_warps(B) * rows_row_words(B);
+}
+
+__device__ inline void cp_async16(unsigned dst, const uint4* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// Queue the copy of one scrub block (128 16-byte chunks at src) into a
+// warp's row at shared address dst: chunk v (words 4v .. 4v+3, in lane
+// v/4's piece) to word kScrubStride * (v/4) + 4 * (v%4), lane l taking
+// chunks l, l+32, l+64, l+96.
+__device__ inline void stage_scrub_block_async(unsigned dst,
+                                               const uint4* src, int lane) {
+#pragma unroll
+  for (int j = 0; j < kScrubB / 16 / 32; ++j) {
+    const int v = lane + 32 * j;
+    cp_async16(dst + 16u * ((v >> 2) * (kScrubStride / 4) + (v & 3)),
+               src + v);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// lane_piece_crc at the scrub block, its 16 words read 16 bytes at a
+// time: kScrubChains chains of consecutive words, the first from state
+// `seed`, joined by k3_ops's chain operators (A_{16 j} bytes: chain c
+// has (kC-1-c) * 64/kC bytes after it, so j = (kC-1-c) * 4/kC).
+template <int kC>
+__device__ inline uint32_t scrub_piece_crc(const uint32_t* p,
+                                           const uint32_t* lt,
+                                           const uint32_t* chain,
+                                           uint32_t seed) {
+  constexpr int kW = 16 / kC;
+  uint32_t w[16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(p)[i];
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
+  }
+  uint32_t crc[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) crc[c] = c == 0 ? seed : 0u;
+#pragma unroll
+  for (int t = 0; t < kW; ++t) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) crc[c] ^= w[c * kW + t];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int c = 0; c < kC; ++c)
+        crc[c] = lt[(crc[c] & 0xFFu) << 5] ^ (crc[c] >> 8);
+  }
+  uint32_t l = crc[kC - 1];
+#pragma unroll
+  for (int c = 0; c < kC - 1; ++c)
+    l ^= apply_nibbles(chain + 128 * ((kC - 1 - c) * (4 / kC) - 1), 1,
+                       crc[c]);
+  return l;
+}
+
+// Queue the copy of one B-byte block (W = B/4 words at src) into a
+// warp's row in K3's layout at shared address dst: word w to w +
+// (w/wpp)*pad, a 4-byte cp.async a word, lane l taking words l, l+32,
+// ...; w/wpp is __umulhi(w, magic) (magic = 0xFFFFFFFF/wpp + 1, exact
+// for these w), or w itself where wpp == 1.
+__device__ inline void stage_block_async(unsigned dst, const uint32_t* src,
+                                         int lane, int W, int wpp, int pad,
+                                         unsigned magic) {
+  for (int j = 0; j < W / 32; ++j) {         // W is a multiple of 32
+    const unsigned w = static_cast<unsigned>(lane + 32 * j);
+    const unsigned q = wpp == 1 ? w : __umulhi(w, magic);
+    cp_async4(dst + 4u * (w + q * pad), src + w);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ inline void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The row of block b: the first whose end lies past it (rows with no
+// body share their end with the row before and are skipped), by a
+// 32-way search of the warp: each round its lanes load 32 ends spread
+// over the interval at once and a ballot keeps the first segment whose
+// last end lies past b, so 132 rows take 2 rounds of one load instead
+// of 8 dependent loads.  Every lane gets the row and its end (the last
+// round's probe, shuffled).
+__device__ inline int warp_row_search(const int64_t* row_ends, int nrows,
+                                      int64_t b, int lane,
+                                      int64_t& row_end) {
+  int lo = 0, n = nrows;                       // the row is in [lo, lo+n)
+  while (true) {
+    const int step = (n + 31) / 32;
+    const int probe = (lane + 1) * step < n ? (lane + 1) * step : n;
+    const int64_t end = row_ends[lo + probe - 1];
+    const unsigned past = __ballot_sync(0xFFFFFFFFu, end > b);
+    const int f = __ffs(past) - 1;             // the last probe is past b
+    if (step == 1) {
+      row_end = __shfl_sync(0xFFFFFFFFu, end, f);
+      return lo + f;
+    }
+    lo += f * step;
+    n = (f + 1) * step < n ? step : n - f * step;
+  }
+}
+
+// Probe stamps (CTT_K3_PHASES; thread 0, so warp 0's range): 0/6 start
+// (clock64 / %globaltimer), 3 the row searched, 1 the tables built, 2
+// the first block staged, 4 its chains and fold, 5 the range's advance
+// and atomic, 7/8 the end after a barrier.
+//
+// kB: kScrubB, the scrub block in its own layout (16-byte copies and
+// loads, kScrubChains chains, all unrolled), or 0: B at run time in
+// K3's layout.
+template <int kB>
+__global__ void __launch_bounds__(kRowsMaxWarps * 32, kRowsMinBlocks)
 crc32c_rows_kernel(const uint8_t* __restrict__ in,
                    unsigned long long* __restrict__ lout,
                    const uint32_t* __restrict__ ops,
                    const int64_t* __restrict__ row_ends, int nrows,
-                   int64_t nblocks, int B, int ndigits) {
+                   int64_t nblocks, int B_, int ndigits) {
   extern __shared__ __align__(16) uint32_t smem[];
+  const int B = kB ? kB : B_;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
+  const int W = B / 4;
   const int wpp = B / 128;
   const int pad = k3_pad(B);
   const int chains = k3_chains(B);
+  const int S = rows_row_words(B);
+  const unsigned magic = 0xFFFFFFFFu / static_cast<unsigned>(wpp) + 1u;
   uint32_t* ltab = smem;                       // 256 * 32 words
   uint32_t* nib = ltab + 256 * 32;             // kNibWords
-  uint32_t* row = nib + kNibWords + warp * k3_row_words(B);
+  uint32_t* rows = nib + kNibWords + warp * 2 * S;   // this warp's two
+  const unsigned srows =
+      static_cast<unsigned>(__cvta_generic_to_shared(rows));
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(in);
   const uint32_t* digits = ops + kOpCols;
+  K5_STAMP(0, clock64());
+  K5_STAMP(6, global_ns());
+  // the fold operators' columns go out first, so they do not queue
+  // behind the copies
+  uint32_t fcol[4];
+  const bool fold_item = threadIdx.x < kFoldItems;
+  if (fold_item) fold_item_load(ops, threadIdx.x, fcol);
+  // this warp's range [b0, b1): nblocks split over the grid's warps,
+  // the first `rem` ranges one block longer
+  const int64_t all = static_cast<int64_t>(gridDim.x) * nwarps;
+  const int64_t gw = static_cast<int64_t>(blockIdx.x) * nwarps + warp;
+  const int64_t per = nblocks / all, rem = nblocks % all;
+  const int64_t b0 = gw * per + (gw < rem ? gw : rem);
+  const int64_t b1 = b0 + per + (gw < rem ? 1 : 0);
+  // queue block blk's copy into this warp's row r (0 or 1)
+  auto stage = [&](int r, int64_t blk) {
+    const unsigned dst = srows + 4u * S * static_cast<unsigned>(r);
+    if constexpr (kB == kScrubB)
+      stage_scrub_block_async(
+          dst, reinterpret_cast<const uint4*>(src + blk * W), lane);
+    else
+      stage_block_async(dst, src + blk * W, lane, W, wpp, pad, magic);
+  };
+  int lo = 0;
+  int64_t row_end = 0;
+  if (b0 < b1) {
+    lo = warp_row_search(row_ends, nrows, b0, lane, row_end);
+    // the range's first two blocks, one into each row
+    for (int64_t blk = b0; blk < b1 && blk < b0 + 2; ++blk)
+      stage(static_cast<int>(blk - b0), blk);
+  }
+  K5_STAMP(3, clock64());
+  // the tables, while the first blocks' copies fly
   build_lane_crc_table(ltab, lane, warp, nwarps);
-  for (int it = threadIdx.x; it < kFoldItems; it += blockDim.x) {
+  if (fold_item) fold_item_store(nib, threadIdx.x, fcol);
+  for (int it = threadIdx.x + blockDim.x; it < kFoldItems;
+       it += blockDim.x) {
     uint32_t c[4];
     fold_item_load(ops, it, c);
     fold_item_store(nib, it, c);
   }
   __syncthreads();
-  const uint32_t* lt = ltab + lane;
-  const uint32_t* chain = nib + 8 * 16 * 32;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * nwarps;
-  for (int64_t blk = static_cast<int64_t>(blockIdx.x) * nwarps + warp;
-       blk < nblocks; blk += stride) {
-    // stage the block, 16 bytes a lane and load, into the padded row
-    const uint4* src = reinterpret_cast<const uint4*>(in + blk * B);
-    for (int v = lane; v < B / 16; v += 32) {
-      const uint4 x = __ldg(src + v);
-      const int w = 4 * v;
-      row[w + (w / wpp) * pad] = x.x;
-      row[w + 1 + ((w + 1) / wpp) * pad] = x.y;
-      row[w + 2 + ((w + 2) / wpp) * pad] = x.z;
-      row[w + 3 + ((w + 3) / wpp) * pad] = x.w;
-    }
-    // the row of this block: the first whose end lies past it (rows
-    // with no body share their end with the row before and are skipped)
-    int lo = 0, hi = nrows - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (row_ends[mid] > blk) hi = mid;
-      else lo = mid + 1;
-    }
-    const int64_t dist = row_ends[lo] - 1 - blk;   // blocks after this one
-    __syncwarp();
-    const uint32_t lcrc = lane_piece_crc<true>(row + lane * (wpp + pad), lt,
-                                               chain, wpp, chains);
-    uint32_t crc = apply_nibbles(nib + lane, 32, lcrc);
+  K5_STAMP(1, clock64());
+  if (b0 < b1) {
+    const uint32_t* lt = ltab + lane;
+    const uint32_t* chain = nib + 8 * 16 * 32;
+    int64_t next_end = lo + 1 < nrows ? row_ends[lo + 1] : row_end;
+    uint32_t L = 0;                            // the running L of row lo
+    for (int64_t blk = b0; blk < b1; ++blk) {
+      const int cur = static_cast<int>((blk - b0) & 1);
+      // this block's copies are done; block i+1's may still fly
+      if (blk + 1 < b1)
+        cp_async_wait_group<1>();
+      else
+        cp_async_wait_group<0>();
+      __syncwarp();
+      if (blk == b0) K5_STAMP(2, clock64());
+      uint32_t lcrc;
+      if constexpr (kB == kScrubB)
+        lcrc = scrub_piece_crc<kScrubChains>(
+            rows + cur * S + lane * kScrubStride, lt, chain,
+            lane == 0 ? L : 0u);
+      else
+        lcrc = lane_piece_crc<true>(rows + cur * S + lane * (wpp + pad), lt,
+                                    chain, wpp, chains, lane == 0 ? L : 0u);
+      L = apply_nibbles(nib + lane, 32, lcrc);
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      crc ^= __shfl_xor_sync(0xFFFFFFFFu, crc, o);
-#pragma unroll
-    for (int i = 0; i < kMaxDigits; ++i) {
-      const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
-      if (i < ndigits && c != 0) {
-        uint32_t v = __ldg(digits + (i * 256 + c) * 32 + lane) &
-                     (0u - ((crc >> lane) & 1u));
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
-        crc = v;
+      for (int o = 16; o > 0; o >>= 1)
+        L ^= __shfl_xor_sync(0xFFFFFFFFu, L, o);
+      if (blk == b0) K5_STAMP(4, clock64());
+      __syncwarp();          // every lane has read the row
+      if (blk + 2 < b1) stage(cur, blk + 2);   // into the row it left
+      if (blk + 1 == row_end) {
+        // the row ends here: its L needs no advance
+        if (lane == 0)
+          atomicXor(lout + lo, static_cast<unsigned long long>(L));
+        L = 0;
+        if (blk + 1 < b1) {
+          // on to the next row with a body
+          ++lo;
+          row_end = next_end;
+          while (row_end <= blk + 1) row_end = row_ends[++lo];
+          next_end = lo + 1 < nrows ? row_ends[lo + 1] : row_end;
+        }
       }
     }
-    if (lane == 0)
-      atomicXor(lout + lo, static_cast<unsigned long long>(crc));
-    __syncwarp();          // the row is restaged by the next block
+    if (b1 < row_end) {
+      // the range ends inside row lo: advance L by the row's blocks
+      // after the range, one operator a nonzero base-256 digit
+      const int64_t dist = row_end - b1;
+      uint32_t dcol[kMaxDigits];
+#pragma unroll
+      for (int i = 0; i < kMaxDigits; ++i) {
+        const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
+        dcol[i] = i < ndigits && c != 0
+                      ? __ldg(digits + (i * 256 + c) * 32 + lane) : 0u;
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxDigits; ++i) {
+        if (i < ndigits && ((dist >> (kDigitBits * i)) & 255) != 0) {
+          uint32_t v = dcol[i] & (0u - ((L >> lane) & 1u));
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+          L = v;
+        }
+      }
+      if (lane == 0)
+        atomicXor(lout + lo, static_cast<unsigned long long>(L));
+    }
+    K5_STAMP(5, clock64());
   }
+  K3_PROBE_SYNC();
+  K5_STAMP(7, global_ns());
+  K5_STAMP(8, clock64());
+}
+
+// Launch one instantiation of K5 (its shared memory granted once for
+// the largest size seen, as launch() does).
+template <int kB>
+int launch_rows(unsigned blocks, int threads, int smem, const void* in,
+                void* lout, const void* ops, const void* row_ends, int nrows,
+                long long nblocks, int B, int ndigits, void* stream) {
+  static int granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        crc32c_rows_kernel<kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  crc32c_rows_kernel<kB><<<blocks, threads, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in),
+      static_cast<unsigned long long*>(lout),
+      static_cast<const uint32_t*>(ops),
+      static_cast<const int64_t*>(row_ends), nrows,
+      static_cast<int64_t>(nblocks), B, ndigits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -729,42 +1014,32 @@ extern "C" int ctt_crc32c_rows(const void* in, void* lout, const void* ops,
                                const void* row_ends, int nrows,
                                long long nblocks, int B, int ndigits,
                                void* stream) {
-  const long long smem = rows_smem_bytes(B);
-  if (smem > kSmemLimit || B % 128 || B <= 0 || nblocks < 1 || nrows < 1 ||
-      ndigits < 1 || ndigits > kMaxDigits)
+  if (B % 128 || B <= 0 || nblocks < 1 || nrows < 1 || ndigits < 1 ||
+      ndigits > kMaxDigits || rows_warps(B) < 1)
     return cudaErrorInvalidValue;
+  const int warps = rows_warps(B);
+  const long long smem = rows_smem_bytes(B);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   long long per_sm = kRowsMinBlocks;
-  if (per_sm > kMaxThreadsPerSm / kRowsThreads)
-    per_sm = kMaxThreadsPerSm / kRowsThreads;
   if (per_sm > kSmSmem / (smem + kSmemReserved))
     per_sm = kSmSmem / (smem + kSmemReserved);
   if (per_sm < 1) per_sm = 1;
-  const int warps = kRowsThreads / 32;
+  // enough warps for one block each, at most one resident wave
   long long blocks = (nblocks + warps - 1) / warps;
   if (blocks > per_sm * sms) blocks = per_sm * sms;
-  static int granted = 48 * 1024;
+  const unsigned grid = static_cast<unsigned>(blocks);
   const int sm = static_cast<int>(smem);
-  if (sm > granted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        crc32c_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    granted = sm;
-  }
-  crc32c_rows_kernel<<<static_cast<unsigned>(blocks), kRowsThreads, sm,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(in),
-      static_cast<unsigned long long*>(lout),
-      static_cast<const uint32_t*>(ops),
-      static_cast<const int64_t*>(row_ends), nrows,
-      static_cast<int64_t>(nblocks), B, ndigits);
-  return static_cast<int>(cudaGetLastError());
+  if (B == kScrubB)
+    return launch_rows<kScrubB>(grid, warps * 32, sm, in, lout, ops, row_ends,
+                             nrows, nblocks, B, ndigits, stream);
+  return launch_rows<0>(grid, warps * 32, sm, in, lout, ops, row_ends,
+                        nrows, nblocks, B, ndigits, stream);
 }
 
 #ifdef CTT_K3_PHASES
-// The probe's buffer: (grid, 8) uint64 on the device, or null.
+// The probe's buffer: (grid, kPhases) uint64 on the device, or null.
 extern "C" int ctt_k3_set_phase_buffer(void* buf) {
   return static_cast<int>(cudaMemcpyToSymbol(g_k3_phases, &buf, sizeof(buf)));
 }

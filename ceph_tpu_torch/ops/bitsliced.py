@@ -479,7 +479,13 @@ def _encode_crc_launch(tables, chunks, block: int):
                                _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_encode_crc launch failed: CUDA error {rc}")
+    if not k2_lane_tables(m, k, block):
+        _encode_crc_launch.narrow_launches += 1
     return parity, lout, True
+
+
+# launches of K2's narrow branch (k2_lane_tables false), whichever entry
+_encode_crc_launch.narrow_launches = 0
 
 
 def fused_hier_call(tables: torch.Tensor, chunks: torch.Tensor,
@@ -821,22 +827,66 @@ def gf_encode_with_crc_w32_fold(tables: torch.Tensor, chunks: torch.Tensor,
 # K5: one crc32c L per row of byte rows laid end to end
 # ----------------------------------------------------------------------------
 
-K5_THREADS = 256             # threads of a K5 block: 8 warps
+K5_MAX_WARPS = 32            # warps of a K5 block at most: 1024 threads
+K5_BLOCKS_PER_SM = 1         # resident K5 blocks an SM by the launch bounds
+# the scrub block, which K5 compiles apart: a lane's 16-word piece every
+# K5_SCRUB_STRIDE words (4 pad words), read and copied 16 bytes at a
+# time, in K5_SCRUB_CHAINS chains
+K5_SCRUB_BLOCK = 2048
+K5_SCRUB_STRIDE = 20
+K5_SCRUB_CHAINS = 2
+
+
+def _k5_row_bytes(block: int) -> int:
+    """Bytes of one staged row of a K5 warp: the scrub block's layout,
+    else K3's (k3_pad)."""
+    if block == K5_SCRUB_BLOCK:
+        return 4 * 32 * K5_SCRUB_STRIDE
+    return 4 * (block // 4 + 32 * k3_pad(block))
+
+
+def k5_warps(block: int) -> int:
+    """Warps of a K5 thread block (csrc/gf_encode_crc_acc.cu rows_warps
+    mirrors it): as many as one block's shared memory holds two staged
+    block-byte rows each (_k5_row_bytes) beside the lane crc tables and
+    the fold's nibble tables, at most K5_MAX_WARPS.  Raises ValueError
+    where the block is not a positive multiple of 128 or not one warp's
+    rows fit."""
+    _check_block("crc32c_rows", block)
+    tables = 4 * (256 * 32 + K3_NIB_WORDS)
+    warps = min(K5_MAX_WARPS,
+                (SMEM_LIMIT - tables) // (2 * _k5_row_bytes(block)))
+    if warps < 1:
+        raise ValueError(f"crc32c_rows: two {block}-byte rows exceed one "
+                         "block's shared memory")
+    return warps
 
 
 def k5_smem(block: int) -> int:
-    """Bytes of shared memory of one K5 block (csrc/gf_encode_crc_acc.cu
-    rows_smem_bytes mirrors it): the lane crc tables, the fold's nibble
-    tables and one staged block-byte row a warp, padded as K3's.
-    Raises ValueError where the block is not a positive multiple of 128
-    or the layout exceeds SMEM_LIMIT."""
-    _check_block("crc32c_rows", block)
-    smem = 4 * (256 * 32 + K3_NIB_WORDS + (K5_THREADS // 32)
-                * (block // 4 + 32 * k3_pad(block)))
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"crc32c_rows: {smem} bytes of shared memory "
-                         "exceed one block's")
-    return smem
+    """Bytes of shared memory of one K5 block (rows_smem_bytes mirrors
+    it): the lane crc tables, the fold's nibble tables and two staged
+    rows a warp (k5_warps)."""
+    return (4 * (256 * 32 + K3_NIB_WORDS)
+            + 2 * k5_warps(block) * _k5_row_bytes(block))
+
+
+def k5_launch(nblocks: int, block: int, sm_count: int) -> int:
+    """K5's grid (ctt_crc32c_rows computes the same): enough thread
+    blocks for one block of the rows a warp, at most one resident wave
+    (K5_BLOCKS_PER_SM, or what the shared memory allows, an SM)."""
+    per_sm = max(1, min(K5_BLOCKS_PER_SM,
+                        SM_SMEM // (k5_smem(block) + BLOCK_SMEM_RESERVED)))
+    warps = k5_warps(block)
+    return max(1, min(-(-nblocks // warps), per_sm * sm_count))
+
+
+def k5_ranges(nblocks: int, nwarps: int) -> list[tuple[int, int]]:
+    """The contiguous block range [b0, b1) of each of K5's `nwarps`
+    warps (the grid's, in order): nblocks split evenly, the first
+    nblocks % nwarps ranges one block longer."""
+    per, rem = divmod(nblocks, nwarps)
+    return [(w * per + min(w, rem), (w + 1) * per + min(w + 1, rem))
+            for w in range(nwarps)]
 
 
 def _check_rows(data, row_ends, block: int) -> tuple[int, int]:

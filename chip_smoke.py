@@ -24,15 +24,18 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    GF(2^8) multiply-add per coefficient and column, one crc table step
    per shard byte) over the int8 rate (1,979 TOP/s), whichever is
    larger.  No single PyTorch call
-   computes these functions, so library_ms is null.  Thirteen rows:
+   computes these functions, so library_ms is null.  Fifteen rows:
    K1 (encode, decode, the device entry), K2's three entries (hier, w32
-   flat, and the byte entry of Pallas #6 at 8+3 x 512 KiB), K3 (one run,
-   two runs), K5 (the deep-scrub crc of the JAX package's jitted
-   `_rows_l`: a 64 MiB chunk of 132 x 512 KiB rows, and a chunk of
-   mixed rows) and K4 (Pallas #7's counterpart: 8 x 512 KiB -> 3 at one
-   pass, and the CLAY repair matrices of phase G, 64 x 176 over 32
-   objects' 8 KiB sub-chunks and 81 x 270 over 32 x 6473 B at two
-   passes).  Then the K3 table: K3 on one 512 KiB run at B = 1,
+   flat, and the byte entry of Pallas #6 at 8+3 x 512 KiB), K2's narrow
+   branch (the hier entry at 16 KiB sub-blocks, which no path here
+   selects: its launches are counted over every phase and may be 0), K3
+   (one run, two runs), K5 (the deep-scrub crc of the JAX package's
+   jitted `_rows_l`: a 64 MiB chunk of 132 x 512 KiB rows, a chunk of
+   mixed rows, and an edge chunk whose rows cross the warps' block
+   ranges, with rows of one block and empty rows) and K4 (Pallas #7's
+   counterpart: 8 x 512 KiB -> 3 at one pass, and the CLAY repair
+   matrices of phase G, 64 x 176 over 32 objects' 8 KiB sub-chunks and
+   81 x 270 over 32 x 6473 B at two passes).  Then the K3 table: K3 on one 512 KiB run at B = 1,
    2 and 4 KiB, with its L zero-fill and without, and K2's hier entry
    at the same block as the run's control; the zero-fill alone; the two
    K3 rows beside their times before K3's redesign.  Then the K2 table:
@@ -428,13 +431,36 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
                    lambda: bs.gf_bitmatmul_stream_plain(enc, data),
                    [(M, run)], gf_bytes(M, run), gf_ops(M, run), flush),
     ]
-    # K5 at a 64 MiB scrub chunk of 4 MiB objects (132 rows of 512 KiB)
-    # and at a chunk of mixed rows: 66 of 1 MiB (phase I's), 11 of
-    # 600 KiB, 11 of one block and 3 empty
+    # K2's narrow branch (one shared crc table, the operators from their
+    # columns), which 8+3 takes at 16 KiB sub-blocks: no path of this
+    # script selects it, so its launches (bs._encode_crc_launch's
+    # narrow count over every phase) are expected to be 0
+    narrow_wb = 4096
+    if bs.k2_lane_tables(M, K, 4 * narrow_wb):
+        raise AssertionError("8+3 at 16 KiB no longer takes K2's narrow "
+                             "branch")
+    nb = 4 * narrow_wb
+    rows.append(kernel_row(
+        "fused_hier_call (K2 narrow branch, 16 KiB sub-blocks)",
+        "csrc/gf_encode_crc_acc.cu", "ceph_tpu/ops/bitsliced.py:523",
+        None, None,
+        lambda: bs.fused_hier_call(enc, data, narrow_wb),
+        lambda: bs.fused_hier_call_plain(enc, data, narrow_wb),
+        [(M, run), (K + M, run // nb)],
+        gf_bytes(M, run) + (K + M) * (run // nb) * 4,
+        gf_ops(M, run) + crc_ops(run), flush))
+    # K5 at a 64 MiB scrub chunk of 4 MiB objects (132 rows of 512 KiB),
+    # at a chunk of mixed rows: 66 of 1 MiB (phase I's), 11 of 600 KiB,
+    # 11 of one block and 3 empty, and at an edge chunk whose rows cross
+    # the warps' block ranges, with rows of one block and empty rows
+    # (tools/k3_phases.K5_SHAPES)
+    from ceph_tpu_torch.tools.k3_phases import K5_SHAPES
     for label, counts in (
-            ("132 x 512 KiB", [run // 2048] * 132),
+            ("132 x 512 KiB", K5_SHAPES["chunk"]),
             ("mixed: 66 x 1 MiB, 11 x 600 KiB, 11 x 2 KiB, 3 empty",
-             [512] * 66 + [300] * 11 + [0, 0, 0] + [1] * 11)):
+             K5_SHAPES["mixed"]),
+            ("edge: 64 x (1, 0, 7, 1, 0, 0, 13, 1 blocks) + 4099 blocks",
+             K5_SHAPES["edge"])):
         n = sum(counts) * 2048
         body = torch.from_numpy(np.frombuffer(rng.bytes(n), dtype=np.uint8)
                                 .copy()).to(dev)
@@ -1780,6 +1806,7 @@ def main() -> int:
     k2_table = k2_block_table(
         bs, torch.cuda.get_device_properties(dev).multi_processor_count,
         k3_table, rows)
+    bs._encode_crc_launch.narrow_launches = 0
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         pin_point(tmp / "pinned_xla.json", dev,
@@ -1804,12 +1831,18 @@ def main() -> int:
         scrub_counts, scrub = phase_deep_scrub(dev, rng)
         counts.update(scrub_counts)
         ab = phase_ab()
+        narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         phase = row.pop("phase")
         counter = row.pop("counter")
+        if counter is None:
+            # K2's narrow branch: its launches over every phase
+            row["launches"] = narrow_launches
+            row["recovery_storm_launches"] = None
+            continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
             c[counter] for c in storm_counts.values())

@@ -578,7 +578,14 @@ K5_LENGTHS = [0, 1, 2047, 2048, 2049, 8 << 10, (300 << 10) + 777,
     (2048, [1]),                           # one block (distance 0)
     (128, [70000, 3]),                     # a three-digit distance
     (384, [7, 2, 30]),                     # odd pieces: two pad words
-    (1024, [5000, 1, 2])])
+    (1024, [5000, 1, 2]),
+    # the range schedule's edges on the H100's grid (4224 warps):
+    (2048, [1, 0, 7, 1, 0, 0, 13, 1] * 64 + [4099]),   # chip_smoke's edge
+    (2048, [3, 8445]),                     # ranges of 2: ends inside a row
+    (2048, [2, 2, 8444]),                  # ranges of 2: ends at row ends
+    (2048, [0, 1, 0, 0, 1, 1, 0, 3, 1, 0] * 1200),  # rows of 0 and 1 block
+    (128, [1, 50000, 2]),                  # a row longer than many ranges
+    (2048, [3, 0, 2])])                    # fewer blocks than warps
 def test_k5_matches_plain(cuda_device, block, counts):
     from ceph_tpu_torch.ops import bitsliced as bs
     rng = np.random.default_rng(sum(counts) + block)
