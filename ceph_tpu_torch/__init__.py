@@ -10,13 +10,16 @@ that lie on the CPU.
 
 Layer map:
   common/   crc32c (numpy tables), perf counters, native CPU library,
+            config options, dout logging, admin socket, CephContext,
             small helpers
   ec/       codec interface, GF(2^8) matrices, registry, plugins (`torch`
             on the card; `isa`, `jerasure`, `example`, `clay`, `lrc`,
             `shec` on the host)
-  ops/      crc32c-as-linear-algebra helpers, kernel wrappers, nvcc build,
-            the operating-point autotuner, the launch flight recorder
-  parallel/ the per-host launch queue, the CLAY repair plan (K4)
+  ops/      crc32c-as-linear-algebra helpers, kernel wrappers, nvcc build
+            and its library cache, the boot prewarm, the operating-point
+            autotuner, the launch flight recorder
+  parallel/ the sharded stripe codec over a device mesh and its per-host
+            MeshService, the per-host launch queue, the CLAY repair plan
   osd/      ECBackend write/read/recovery pipeline, ECUtil, ECTransaction,
             PG log
   store/    ObjectStore contract + MemStore

@@ -10,13 +10,15 @@ more nvcc links them:
          -Xcompiler -fPIC -c csrc/<name>.cu -o <build>/<name>.o
     nvcc -shared -o <build>/libceph_tpu_torch_kernels.<hash>.so *.o
 
-The library lands in `ceph_tpu_torch/build/` (listed in .gitignore),
-named by a hash of the sources and flags, so a source change rebuilds
-and an unchanged tree reuses the last build.  Nothing here runs at
-import: `load()` is called by the kernel wrappers on their first
-launch.  A failed build raises; there is no fallback.  `status()` says
-whether this process compiled the library or loaded it from the build
-directory (the flight recorder's compile attribution, ops/profiler.py).
+The library lands in `ceph_tpu_torch/build/` (listed in .gitignore)
+unless ops/compile_cache.enable() points `set_build_dir` elsewhere
+before the first load, named by a hash of the sources and flags, so a
+source change rebuilds and an unchanged tree reuses the last build.
+Nothing here runs at import: `load()` is called by the kernel wrappers
+on their first launch.  A failed build raises; there is no fallback.
+`status()` says whether this process compiled the library or loaded one
+already built (`hit_count()`; the flight recorder's compile
+attribution, ops/profiler.py).
 """
 
 from __future__ import annotations
@@ -33,14 +35,17 @@ from pathlib import Path
 
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
-BUILD_DIR = PKG / "build"
+DEFAULT_BUILD_DIR = PKG / "build"
+BUILD_DIR = DEFAULT_BUILD_DIR
+LIBRARY_GLOB = "libceph_tpu_torch_kernels.*.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-# nvcc builds run by this process, and their wall seconds
-_builds = {"count": 0, "seconds": 0.0}
+# nvcc builds run by this process and their wall seconds; loads of a
+# library that was already built (no nvcc run in this process)
+_builds = {"count": 0, "seconds": 0.0, "hits": 0}
 
 
 def _nvcc() -> str:
@@ -64,6 +69,19 @@ def source_hash() -> str:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
+
+
+def set_build_dir(path: str | os.PathLike) -> None:
+    """Build into and load from `path` from now on.  Refused once a
+    library is loaded from another directory: the kernels this process
+    runs would not come from the directory it names."""
+    global BUILD_DIR
+    path = Path(path)
+    with _lock:
+        if _lib is not None and path != BUILD_DIR:
+            raise RuntimeError(f"kernel library already loaded from "
+                               f"{BUILD_DIR}, cannot move it to {path}")
+        BUILD_DIR = path
 
 
 def library_path() -> Path:
@@ -116,12 +134,20 @@ def build_count() -> int:
     return _builds["count"]
 
 
+def hit_count() -> int:
+    """Loads of a library that was already built, with no nvcc run in
+    this process (0 or 1: the library loads once)."""
+    return _builds["hits"]
+
+
 def status() -> dict:
     """The kernel library's provenance: its path, whether it is loaded,
     and the nvcc builds this process ran for it."""
-    return {"library": library_path().name, "loaded": _lib is not None,
+    return {"library": library_path().name, "dir": str(BUILD_DIR),
+            "loaded": _lib is not None,
             "builds_in_process": _builds["count"],
-            "build_s": round(_builds["seconds"], 3)}
+            "build_s": round(_builds["seconds"], 3),
+            "hits": _builds["hits"]}
 
 
 def load() -> ctypes.CDLL:
@@ -131,7 +157,10 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        existed = library_path().exists()
         lib = ctypes.CDLL(str(build()))
+        if existed and _builds["count"] == 0:
+            _builds["hits"] += 1
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.ctt_gf_bitmatmul.argtypes = [vp, vp, vp, i32, i32, i64, i64,
                                          i32, i64, i32, vp]

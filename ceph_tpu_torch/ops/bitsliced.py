@@ -168,8 +168,14 @@ def _check_tile(tile: int | None, n: int) -> int:
     return tile
 
 
+def k1_tables_fit(r: int, k: int) -> bool:
+    """Whether K1 takes (r, k) product tables: their r*k*256 bytes fit
+    the shared memory of one block.  K4 serves the rest."""
+    return r * k * 256 <= SMEM_LIMIT
+
+
 def _check_tables_smem(name: str, r: int, k: int) -> None:
-    if r * k * 256 > SMEM_LIMIT:
+    if not k1_tables_fit(r, k):
         raise ValueError(f"{name}: {r}x{k} product tables exceed the "
                          "shared memory of one block")
 

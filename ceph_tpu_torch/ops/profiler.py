@@ -13,18 +13,23 @@ DEFAULT_LAT_BUCKETS with the rest of the perf counters.
 Compile attribution, translated: on the TPU the first launch of a jit
 bucket (a distinct kind, path and padded shape) paid an XLA/Mosaic
 compile, and the reference's ledger times it, with its persistent
-compile cache (ops/compile_cache.py) marking disk-served compiles.  On
-the card nothing compiles per shape: the kernels are one nvcc-built
-library (ops/_build.py), built once per source hash into the build
-directory, or loaded from it.  So a first-seen bucket here counts as
-`compiled` only when its submit ran an nvcc build in this process
-(`_build.build_count()` moved), and as a `cache_hit` otherwise (the
-library was already built or loaded); `compile_ledger()` carries
-`_build.status()` where the reference carried its cache's.  A compile
-over `stall_s` counts in `ec_compile_stalls`.  Not ported yet, with the
-consumers that read them (the OSD's asok, bench rows, the monitor's
-COMPILE_STORM window): the boot prewarm's tallies, the windowed compile
-report, bench_summary and the ring resize.
+compile cache marking disk-served compiles.  On the card nothing
+compiles per shape: the kernels are one nvcc-built library
+(ops/_build.py), built once per source hash into the directory
+ops/compile_cache.py names, or loaded from it.  So a first-seen bucket
+here counts as `compiled` only when its submit ran an nvcc build in this
+process (`_build.build_count()` moved), and as a `cache_hit` otherwise
+(the library was already built or loaded); its first-launch seconds
+still carry the card's other first-use costs (the CUDA context, each
+kernel's lazy module load, pinned staging), which the ledger shows as
+first_s against steady_s.  A compile over `stall_s` counts in
+`ec_compile_stalls` and enters the window `compile_report()` sums.
+
+The boot prewarm (ops/prewarm.py) seeds the buckets it ran through
+`note_prewarm`, so their first runtime launch is not first-seen;
+`prewarm_summary()` is its tally, `bench_summary()` a run's provenance
+block (torch, CUDA and the card's name where the reference reported
+jax and its device), `set_ring_size` the startup ring resize.
 
 Always on, null when off: disabled, `begin()` returns None after one
 attribute check and every other entry point no-ops on a None record.
@@ -36,7 +41,9 @@ import collections
 import threading
 import time
 
-from . import _build
+import torch
+
+from . import _build, compile_cache
 
 
 def _build_prof_perf(name: str = "device_profiler"):
@@ -54,6 +61,12 @@ def _build_prof_perf(name: str = "device_profiler"):
             .add_u64_counter("ec_compile_cache_hits",
                              "first-seen launch buckets served by an "
                              "already built kernel library")
+            .add_u64_counter("ec_prewarm_compiles",
+                             "buckets the boot prewarm ran while "
+                             "building the kernel library")
+            .add_u64_counter("ec_prewarm_cache_hits",
+                             "buckets the boot prewarm ran on an "
+                             "already built kernel library")
             .add_histogram("lat_launch_submit",
                            "launch dispatch wall time (includes the "
                            "kernel build on the first launch)")
@@ -61,6 +74,8 @@ def _build_prof_perf(name: str = "device_profiler"):
                            "submit -> materialize device time")
             .add_histogram("lat_launch_queue_wait",
                            "host-queue batching wait before launch")
+            .add_histogram("lat_prewarm",
+                           "per-bucket boot-time prewarm wall")
             .create_perf_counters())
 
 
@@ -126,9 +141,11 @@ class DeviceProfiler:
     _host_lock = threading.Lock()
 
     def __init__(self, ring_size: int = 256, stall_s: float = 0.25,
-                 perf=None, enabled: bool = True):
+                 storm_window_s: float = 60.0, perf=None,
+                 enabled: bool = True):
         self.enabled = enabled
         self.stall_s = float(stall_s)
+        self.storm_window_s = float(storm_window_s)
         self.perf = perf if perf is not None else _build_prof_perf()
         self._lock = threading.Lock()
         self._next_id = 1
@@ -136,6 +153,10 @@ class DeviceProfiler:
             collections.deque(maxlen=max(1, int(ring_size)))
         # bucket key -> {count, first_s, steady_min_s, first_ts}
         self._buckets: dict[str, dict] = {}
+        # recent in-process builds (ts, bucket, seconds): the window
+        # compile_report sums; bounded, and steady state adds none
+        self._compile_events: collections.deque = \
+            collections.deque(maxlen=512)
         # materialized launches by kind, unbounded by the ring
         self._by_kind: collections.Counter = collections.Counter()
         self.launches = 0
@@ -143,6 +164,11 @@ class DeviceProfiler:
         self.launched_bytes = 0
         self.compile_stalls = 0
         self.cache_hits = 0
+        # boot prewarm tallies (ops/prewarm.py feeds them through
+        # note_prewarm)
+        self.prewarm_compiles = 0
+        self.prewarm_cache_hits = 0
+        self.prewarm_s = 0.0
         self.created_at = time.time()
 
     # -- host singleton ------------------------------------------------------
@@ -160,6 +186,14 @@ class DeviceProfiler:
         one stay readable through any direct references)."""
         with cls._host_lock:
             cls._host = None
+
+    def set_ring_size(self, n: int) -> None:
+        """Resize the completed-launch ring (startup conf
+        osd_ec_profiler_ring; existing records carry over, oldest
+        dropped)."""
+        with self._lock:
+            self._ring = collections.deque(self._ring,
+                                           maxlen=max(1, int(n)))
 
     # -- recording -----------------------------------------------------------
 
@@ -204,6 +238,9 @@ class DeviceProfiler:
                     rec.compiled = built
                     rec.compile_s = rec.submit_s if built else 0.0
                     rec.cache_hit = not built
+                    if built:
+                        self._compile_events.append(
+                            (time.time(), bucket, rec.submit_s))
                     if built and rec.submit_s >= self.stall_s:
                         self.compile_stalls += 1
                         stalled = True
@@ -212,6 +249,10 @@ class DeviceProfiler:
                         hit = True
                 else:
                     ent["count"] += 1
+                    if ent.get("prewarmed") and ent["count"] == 1:
+                        # first runtime launch of a boot-prewarmed
+                        # bucket: a cache hit, not a first launch
+                        rec.cache_hit = True
                     sm = ent["steady_min_s"]
                     ent["steady_min_s"] = rec.submit_s if sm is None \
                         else min(sm, rec.submit_s)
@@ -243,6 +284,41 @@ class DeviceProfiler:
             self.perf.inc("ec_launch_bytes", rec.nbytes)
             self.perf.hinc("lat_launch_device", device_s)
 
+    def note_prewarm(self, bucket: str, warm_s: float,
+                     cache_hit: bool) -> None:
+        """Record one boot-time prewarm entry's bucket (ops/prewarm.py):
+        it enters the ledger pre-seeded, so its first runtime launch is
+        not first-seen.  Prewarm builds never enter the compile_report
+        window: they happen before the daemon reports up."""
+        with self._lock:
+            if bucket not in self._buckets:
+                self._buckets[bucket] = {
+                    "count": 0, "first_s": warm_s,
+                    "steady_min_s": None, "first_ts": time.time(),
+                    "prewarmed": True, "cache_hit": cache_hit}
+            if cache_hit:
+                self.prewarm_cache_hits += 1
+            else:
+                self.prewarm_compiles += 1
+            self.prewarm_s += warm_s
+        if self.perf:
+            self.perf.inc("ec_prewarm_cache_hits" if cache_hit
+                          else "ec_prewarm_compiles")
+            self.perf.hinc("lat_prewarm", warm_s)
+
+    def prewarm_summary(self) -> dict:
+        """The prewarm tallies block (`prewarm status` / the compile
+        ledger)."""
+        with self._lock:
+            prewarmed = sum(1 for e in self._buckets.values()
+                            if e.get("prewarmed"))
+            return {
+                "compiles": self.prewarm_compiles,
+                "cache_hits": self.prewarm_cache_hits,
+                "buckets": prewarmed,
+                "total_s": round(self.prewarm_s, 3),
+            }
+
     # -- build ledger --------------------------------------------------------
 
     def _bucket_rows(self) -> list[dict]:
@@ -262,6 +338,7 @@ class DeviceProfiler:
                 if steady is not None else None,
                 "compile_s": round(compile_s, 4),
                 "first_ts": e["first_ts"],
+                "prewarmed": bool(e.get("prewarmed")),
                 "cache_hit": bool(e["cache_hit"]),
             })
         rows.sort(key=lambda r: -r["compile_s"])
@@ -283,6 +360,30 @@ class DeviceProfiler:
             "compile_stalls": self.compile_stalls,
             "compile_cache_hits": self.cache_hits,
             "kernel_library": _build.status(),
+            "prewarm": self.prewarm_summary(),
+            "persistent_cache": compile_cache.status(),
+            "window": self.compile_report(),
+        }
+
+    def compile_report(self, window_s: float | None = None) -> dict:
+        """Windowed build summary (what the reference's OSD ships to the
+        monitor for its COMPILE_STORM warning)."""
+        window_s = self.storm_window_s if window_s is None \
+            else float(window_s)
+        cutoff = time.time() - window_s
+        with self._lock:
+            recent = [(b, s) for ts, b, s in self._compile_events
+                      if ts >= cutoff]
+        total = sum(s for _b, s in recent)
+        worst = max(recent, key=lambda e: e[1], default=None)
+        return {
+            "window_s": window_s,
+            "compile_s": round(total, 3),
+            "events": len(recent),
+            "stalls": sum(1 for _b, s in recent if s >= self.stall_s),
+            "stalls_total": self.compile_stalls,
+            "worst_bucket": worst[0] if worst else None,
+            "worst_s": round(worst[1], 3) if worst else 0.0,
         }
 
     # -- dumps ---------------------------------------------------------------
@@ -314,18 +415,55 @@ class DeviceProfiler:
             "uptime_s": round(time.time() - self.created_at, 1),
         }
 
+    def bench_summary(self) -> dict:
+        """A run's provenance block: enough for a reader of its numbers
+        to see what the device plane did, and on which torch, CUDA and
+        card."""
+        def q(key, quant):
+            est = self.perf.quantile(key, quant) if self.perf else None
+            return round(est[0] * 1e3, 3) if est else None
+        with self._lock:
+            launches = self.launches
+        rows = self._bucket_rows()
+        out = {
+            "launches": launches,
+            "runs_per_launch": round(self.launched_runs / launches, 2)
+            if launches else 0.0,
+            "bytes": self.launched_bytes,
+            "compile_buckets": len(rows),
+            "compile_s_total": round(
+                sum(r["compile_s"] for r in rows), 3),
+            "compile_stalls": self.compile_stalls,
+            "compile_cache_hits": self.cache_hits,
+            "prewarm_compiles": self.prewarm_compiles,
+            "prewarm_cache_hits": self.prewarm_cache_hits,
+            "device_ms_p50": q("lat_launch_device", 0.5),
+            "device_ms_p99": q("lat_launch_device", 0.99),
+            "queue_wait_ms_p50": q("lat_launch_queue_wait", 0.5),
+            "queue_wait_ms_p99": q("lat_launch_queue_wait", 0.99),
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+        }
+        if torch.cuda.is_available():
+            out["device_kind"] = torch.cuda.get_device_name(0)
+        return out
+
     def reset(self) -> None:
         """Clear ledger state (benches isolating a phase; the perf
         histograms are monotonic by design and stay)."""
         with self._lock:
             self._ring.clear()
             self._buckets.clear()
+            self._compile_events.clear()
             self._by_kind.clear()
             self.launches = 0
             self.launched_runs = 0
             self.launched_bytes = 0
             self.compile_stalls = 0
             self.cache_hits = 0
+            self.prewarm_compiles = 0
+            self.prewarm_cache_hits = 0
+            self.prewarm_s = 0.0
 
 
 def device_profiler() -> DeviceProfiler:

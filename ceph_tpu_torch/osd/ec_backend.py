@@ -46,13 +46,25 @@ each helper chunk) and rebuilds through the pool's ClayRepairPlan
 (lost, helpers) group.  A helper read failure falls back to the
 full-read decode for that object (`ec_clay_repair_fallbacks`).
 
+The mesh plane (`mesh_codec=` or `mesh_service=`,
+parallel/mesh.DistributedStripeCodec): when a mesh codec serves the
+backend, a drain's runs are plain-encoded on the mesh (fusion is off,
+`can_fuse` false) and their crc32c folded on the host, and reconstruct
+reads, batched recovery decodes and CLAY repairs go through the mesh's
+decode_flat, decode_flat_batch and clay_repair_batch.  A geometry,
+matrix or no-matrix mismatch sets `mesh_error` and the backend serves
+from the single-card plane; a failed mesh launch aborts that op (a
+drain) or falls through to the single-card plane (a read or a
+recovery), and `_disable_mesh` moves every later op there, counted in
+`ec_mesh_errors` and the MeshService ledger.  The single-card plane is
+the same kernels on the codec's own device.
+
 Shard I/O goes through the ShardBackend seam; LocalShardBackend applies
 to a local ObjectStore (the MemStore topology).
 
-Not part of this module (yet): the multi-card mesh plane and its
-recovery branches, mClock-scheduled recovery, and tracked ops.  The
-counters default to `_build_ec_perf`'s set; any object with inc, set
-and tinc may stand in (`perf=`).
+Not part of this module (yet): mClock-scheduled recovery and tracked
+ops.  The counters default to `_build_ec_perf`'s set; any object with
+inc, set and tinc may stand in (`perf=`).
 """
 
 from __future__ import annotations
@@ -227,7 +239,7 @@ class _Drain:
     kinds: list[str]                  # per work item: "fused" | "plain"
     fused_handle: object | None       # plugin submit handle | ticket
     fused_pos: dict[int, int]         # work index -> position in handle
-    plain_handle: tuple | None        # ("queue"|"plugin"|"np", handle)
+    plain_handle: tuple | None        # ("queue"|"mesh"|"plugin"|"np", h)
     plain_cols: dict[int, int]        # work index -> column offset
     t_assemble: float = 0.0
     # flight-recorder records of direct (non-queue) launches; queue
@@ -247,8 +259,7 @@ class _Recovery:
 
 
 def _build_ec_perf(name: str):
-    """The backend's own counter set (reference _build_ec_perf; the
-    mesh counters come with the mesh plane)."""
+    """The backend's own counter set (reference _build_ec_perf)."""
     from ..common.perf_counters import PerfCountersBuilder
     return (PerfCountersBuilder(name)
             .add_u64_counter("ec_drain_submits", "pipeline drains launched")
@@ -275,6 +286,12 @@ def _build_ec_perf(name: str):
                              "deep-scrub bytes crc'd on device")
             .add_u64_counter("ec_scrub_host_bytes",
                              "deep-scrub bytes crc'd on host")
+            .add_u64_counter("ec_mesh_drains",
+                             "drains dispatched to the mesh plane")
+            .add_u64_counter("ec_mesh_repair_launches",
+                             "batched distributed repair decodes")
+            .add_u64_counter("ec_mesh_errors",
+                             "mesh launch failures (plane fell back)")
             .add_u64_counter("ec_repair_helper_bytes",
                              "survivor/helper bytes read for repair")
             .add_u64_counter("ec_repair_reconstructed_bytes",
@@ -305,7 +322,8 @@ class ECBackend:
                  launch_queue=None, dispatch_depth: int = 2, perf=None,
                  perf_name: str = "ec", read_timeout: float = 30.0,
                  clay_repair: bool = True,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None,
+                 mesh_codec=None, mesh_service=None, logger=None):
         self.ec_impl = ec_impl
         self.sinfo = sinfo
         self.shards = shards
@@ -323,6 +341,40 @@ class ECBackend:
                 torch.device(codec_dev) != self.device:
             raise ValueError(f"codec on {codec_dev}, backend asked for "
                              f"{self.device}")
+        self._logger = logger
+        # the multi-card data plane (parallel/mesh.DistributedStripeCodec):
+        # acquired from the per-host MeshService when one is supplied; a
+        # directly injected codec (tests, benches) takes precedence.
+        # Geometry/matrix mismatches are config errors, not crashes: the
+        # backend logs, records mesh_error and serves from the
+        # single-card plane
+        self.mesh_error: str | None = None
+        self._mesh_service = mesh_service
+        self._mesh_fallen = None
+        if mesh_codec is None and mesh_service is not None:
+            impl_matrix = getattr(ec_impl, "matrix", None)
+            if impl_matrix is None:
+                # no generator matrix to validate against (bitmatrix-only
+                # or layered codes): an unvalidated mesh codec could
+                # silently write divergent parity — refuse it
+                self._mesh_config_error(
+                    "plugin exposes no generator matrix to validate "
+                    "against the mesh codec")
+            else:
+                try:
+                    mesh_codec = mesh_service.acquire(
+                        self.k, self.m,
+                        technique=getattr(ec_impl, "technique", "cauchy"),
+                        matrix=impl_matrix)
+                except Exception as e:  # noqa: BLE001 — MeshError et al
+                    self._mesh_config_error(f"mesh acquire failed: {e}")
+                    mesh_codec = None
+        if mesh_codec is not None:
+            why = self._mesh_geometry_error(mesh_codec)
+            if why is not None:
+                self._mesh_config_error(why)
+                mesh_codec = None
+        self.mesh_codec = mesh_codec
         # per-host EC launch queue (parallel/launch_queue.py): when set,
         # drains, repair decodes and CLAY repairs submit there and
         # coalesce with other PGs'; completion and in-order acks stay
@@ -361,6 +413,64 @@ class ECBackend:
         # (reference HashInfo projected sizes, ECUtil.h:101-160)
         self._projected: dict[hobject_t, dict] = {}
 
+    # -- mesh plane management ----------------------------------------------
+
+    def _log(self, msg: str) -> None:
+        if self._logger is not None:
+            self._logger(msg)
+        else:
+            from ..common.dout import dout
+            dout("ec", 1, msg)
+
+    def _mesh_geometry_error(self, mesh_codec) -> str | None:
+        """Why `mesh_codec` cannot serve this backend (None = it can)."""
+        if (mesh_codec.k, mesh_codec.m) != (self.k, self.m):
+            return (f"mesh codec geometry k={mesh_codec.k} "
+                    f"m={mesh_codec.m} does not match the EC profile "
+                    f"k={self.k} m={self.m}")
+        # the technique must match too: cauchy parity written by the
+        # mesh is garbage to a reed_sol_van plugin's decode matrix
+        impl_matrix = getattr(self.ec_impl, "matrix", None)
+        if impl_matrix is not None and \
+                not np.array_equal(mesh_codec.matrix, impl_matrix):
+            return ("mesh codec generator matrix does not match the "
+                    "plugin's — mesh parity would not decode on the "
+                    "single-chip plane")
+        return None
+
+    def _mesh_config_error(self, why: str) -> None:
+        self.mesh_error = why
+        self._log(f"EC mesh plane unavailable ({why}); "
+                  f"serving from the single-chip codec")
+
+    def _disable_mesh(self, err: BaseException) -> None:
+        """Containment: a failed mesh launch aborts its op (the caller
+        does that); here the backend moves every later op to the
+        single-card plane, so nothing is dispatched to the broken mesh
+        again.  Reported to the MeshService ledger."""
+        if self.mesh_codec is None:
+            return
+        # drains already in flight on the mesh keep their codec: their
+        # results may still materialize
+        self._mesh_fallen = self.mesh_codec
+        self.mesh_codec = None
+        self.mesh_error = f"mesh plane disabled after failure: {err!r}"
+        self._log(self.mesh_error)
+        if self.perf:
+            self.perf.inc("ec_mesh_errors")
+        if self._mesh_service is not None:
+            self._mesh_service.note_failure(err)
+
+    def mesh_status(self) -> dict:
+        """Per-backend plane state (the OSD's `mesh status`)."""
+        mc = self.mesh_codec
+        return {
+            "active": mc is not None,
+            "mesh": ({"shard": mc.n_shard, "data": mc.n_data}
+                     if mc is not None else None),
+            "error": self.mesh_error,
+        }
+
     def _note_fused_path(self, path: str | None) -> None:
         """Record which kernel family served a drain: paths starting
         with "hier" (the hier kernels K2/K3, a split drain led by them)
@@ -393,6 +503,7 @@ class ECBackend:
             "clay_repair_launches": u64("ec_clay_repair_launches"),
             "clay_repair_fallbacks": u64("ec_clay_repair_fallbacks"),
             "clay_plans_cached": len(self._clay_plans),
+            "mesh_repair_launches": u64("ec_mesh_repair_launches"),
             "reconstruct_reads": u64("ec_reconstruct_reads"),
             "reconstruct_read_bytes": u64("ec_reconstruct_read_bytes"),
             "read_timeouts": u64("ec_read_timeouts"),
@@ -693,10 +804,13 @@ class ECBackend:
         # every chunk-aligned appending extent of the whole drain gets
         # parity + cumulative shard crcs from one fused launch; the
         # append decision uses _sim_chunk, the projected end-of-chunk
-        # across all in-flight drains.  Overwrites take the plain path.
+        # across all in-flight drains.  Overwrites take the plain path,
+        # and so does every run while a mesh codec serves the backend:
+        # the mesh plain-encodes and the crcs fold on the host
         fused_idx: list[int] = []
         plain_idx: list[int] = []
-        can_fuse = hasattr(self.ec_impl, "encode_extents_with_crc_submit")
+        can_fuse = self.mesh_codec is None and \
+            hasattr(self.ec_impl, "encode_extents_with_crc_submit")
         deleted: set[tuple[int, hobject_t]] = set()
         for i, ((op, oid, e, _), run) in enumerate(zip(work, runs)):
             hinfo = op.plan.hash_infos[oid]
@@ -765,7 +879,24 @@ class ECBackend:
                 # (ceph_tpu's ECBackend concatenates them, and recovery
                 # of such an object then fails its crc check)
                 sub_chunked = self.ec_impl.get_sub_chunk_count() != 1
-                if queue is not None and not sub_chunked:
+                if self.mesh_codec is not None and not sub_chunked:
+                    rec = prof.begin("mesh_encode", codec=codec,
+                                     nbytes=int(big.size))
+                    try:
+                        drain.plain_handle = (
+                            "mesh", self.mesh_codec.encode_flat_submit(big))
+                    except Exception as e:  # noqa: BLE001 — mesh died
+                        # containment: this drain's ops abort (the
+                        # caller), later drains take the single-card
+                        # plane
+                        self._disable_mesh(e)
+                        raise
+                    prof.submitted(rec, f"mesh:x:w{big.shape[1]}",
+                                   path="mesh")
+                    drain.prof_plain = rec
+                    if self.perf:
+                        self.perf.inc("ec_mesh_drains")
+                elif queue is not None and not sub_chunked:
                     drain.plain_handle = ("queue", queue.submit_chunks(
                         self.ec_impl, big, owner=id(self)))
                     if self.perf and not fused_idx:
@@ -874,6 +1005,14 @@ class ECBackend:
                     t_p = time.perf_counter()
                     if kind == "queue":
                         plain_par = np.asarray(h.result())
+                    elif kind == "mesh":
+                        # _mesh_fallen: the plane was disabled after this
+                        # drain launched; its own launch may still
+                        # materialize (and aborts cleanly if not)
+                        mc = self.mesh_codec or self._mesh_fallen
+                        plain_par = mc.encode_flat_finalize(h)
+                        prof.materialized(drain.prof_plain,
+                                          time.perf_counter() - t_p)
                     elif kind == "plugin":
                         plain_par = self.ec_impl.encode_chunks_finalize(h)
                         prof.materialized(drain.prof_plain,
@@ -891,6 +1030,11 @@ class ECBackend:
                           if drain.plain_handle is not None else None):
                     if getattr(h, "is_launch_ticket", False):
                         h.cancel()
+                if drain.plain_handle is not None and \
+                        drain.plain_handle[0] == "mesh":
+                    # a mesh finalize failure aborts this drain's ops and
+                    # moves later drains to the single-card plane
+                    self._disable_mesh(e)
                 for op in drain.ops:
                     self._abort_op(op, e)
                 return
@@ -1142,11 +1286,12 @@ class ECBackend:
     def _reconstruct_read(self, have: dict[int, np.ndarray],
                           chunk_len: int, span: int) -> np.ndarray:
         """Reconstruct-on-read: rebuild the missing data shards of a
-        degraded read through the decode path — the per-host launch
-        queue (co-batched with other PGs' repair decodes) when one is
-        wired, the plugin's decode otherwise.  Sub-chunked codes (CLAY)
-        keep the dict-decode path: a partial chunk run does not respect
-        their plane layout."""
+        degraded read through the decode path — the mesh's decode_flat
+        when that plane is up, else the per-host launch queue
+        (co-batched with other PGs' repair decodes) when one is wired,
+        the plugin's decode otherwise.  Sub-chunked codes (CLAY) keep
+        the dict-decode path: a partial chunk run does not respect their
+        plane layout."""
         if self.perf:
             self.perf.inc("ec_reconstruct_reads")
             self.perf.inc("ec_reconstruct_read_bytes", span)
@@ -1157,10 +1302,23 @@ class ECBackend:
         dense = np.zeros((self.n, chunk_len), dtype=np.uint8)
         for s, d in use.items():
             dense[s] = d
-        if self._launch_queue is not None:
+        dec = None
+        if self.mesh_codec is not None:
+            survivors = tuple(sorted(use))
+            targets = tuple(s for s in range(self.k) if s not in use)
+            try:
+                rows = self.mesh_codec.decode_flat(
+                    dense[list(survivors)], survivors, targets)
+            except Exception as e:  # noqa: BLE001 — mesh died mid-read
+                self._disable_mesh(e)
+            else:
+                dec = dense
+                for i, t in enumerate(targets):
+                    dec[t] = rows[i]
+        if dec is None and self._launch_queue is not None:
             dec = np.asarray(self._launch_queue.submit_decode(
                 self.ec_impl, dense, erasures, owner=id(self)).result())
-        else:
+        elif dec is None:
             dec = np.asarray(self.ec_impl.decode_chunks(dense, erasures))
         nstripes = chunk_len // self.sinfo.chunk_size
         logical = dec[: self.k] \
@@ -1351,10 +1509,10 @@ class ECBackend:
             groups.setdefault((survivors, targets, erasures),
                               []).append(st)
         # phase 3: one decode per geometry group (width-capped slices)
-        for (_survivors, targets, erasures), sts in groups.items():
+        for (survivors, targets, erasures), sts in groups.items():
             try:
                 rec.decode.append((sts, self._decode_recovery_group(
-                    targets, erasures, sts)))
+                    survivors, targets, erasures, sts)))
             except Exception as e:  # noqa: BLE001 — whole-group launch
                 for st in sts:
                     results.setdefault(st["oid"], e)
@@ -1486,15 +1644,25 @@ class ECBackend:
     def _clay_repair_group(self, lost: int, helpers: tuple[int, ...],
                            sts: list[dict]) -> Callable[[], list]:
         """Launch the rebuild of one (lost, helpers) CLAY group: every
-        object's stacked helper plane rows ride one K4 launch — through
-        the per-host launch queue (co-batched with other PGs' repairs)
-        when one is wired, the plan's apply_batch otherwise; neither has
-        a host fallback.  Returns the wait: per object {lost: chunk}."""
+        object's stacked helper plane rows ride one launch — the mesh's
+        clay_repair_batch when that plane is up, else K4 through the
+        per-host launch queue (co-batched with other PGs' repairs) when
+        one is wired, the plan's apply_batch otherwise; none has a host
+        fallback.  Returns the wait: per object {lost: chunk}."""
         plan = self._clay_plan(lost, helpers)
         rows_list = [
             self.ec_impl.repair_rows(
                 lost, {h: st["got"][h] for h in helpers}, helpers)
             for st in sts]
+        if self.mesh_codec is not None:
+            try:
+                rebuilt = self.mesh_codec.clay_repair_batch(plan, rows_list)
+            except Exception as e:  # noqa: BLE001 — mesh died mid-storm
+                self._disable_mesh(e)
+            else:
+                if self.perf:
+                    self.perf.inc("ec_mesh_repair_launches")
+                return lambda: [{lost: r} for r in rebuilt]
         if self._launch_queue is not None:
             big, widths = concat_columns(rows_list)
             ticket = self._launch_queue.submit_clay_repair(
@@ -1503,15 +1671,32 @@ class ECBackend:
                 np.asarray(ticket.result()), widths)]
         return lambda: [{lost: r} for r in plan.apply_batch(rows_list)]
 
-    def _decode_recovery_group(self, targets, erasures, sts: list[dict]
-                               ) -> Callable[[], list]:
+    def _decode_recovery_group(self, survivors, targets, erasures,
+                               sts: list[dict]) -> Callable[[], list]:
         """Launch the rebuild of one (survivors, targets) geometry
-        group: width-capped concatenated decodes, through the launch
-        queue when one is wired so recovery decodes coalesce with other
-        PGs'; sub-chunked codes (CLAY) decode per object — their plane
-        layout does not concatenate along the byte axis.  Returns the
-        wait: per object {shard: data} for the targets."""
+        group: one mesh decode_flat_batch of every object's survivor
+        rows when that plane is up; else width-capped concatenated
+        decodes, through the launch queue when one is wired so recovery
+        decodes coalesce with other PGs'.  Sub-chunked codes (CLAY)
+        never take the mesh and decode per object — their plane layout
+        does not concatenate along the byte axis.  Returns the wait:
+        per object {shard: data} for the targets."""
         erasures = list(erasures)
+        if self.mesh_codec is not None and \
+                self.ec_impl.get_sub_chunk_count() == 1:
+            try:
+                rows_list = self.mesh_codec.decode_flat_batch(
+                    [np.stack([st["have"][s] for s in survivors])
+                     for st in sts], survivors, targets)
+            except Exception as e:  # noqa: BLE001 — mesh died mid-storm
+                # containment: this group and every later one decode on
+                # the single-card plane; recovery itself proceeds
+                self._disable_mesh(e)
+            else:
+                if self.perf:
+                    self.perf.inc("ec_mesh_repair_launches")
+                return lambda: [{s: rows[i] for i, s in enumerate(targets)}
+                                for rows in rows_list]
         if self.ec_impl.get_sub_chunk_count() != 1:
             def per_object():
                 out = []

@@ -131,16 +131,41 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    host crc32c (the native library), and the device path again.  Walls
    and verified GB/s of both paths, the K5 launches, the byte split and
    the repair's K1 launches are printed.
-11. A/B (phase F): the native CPU library must have built; then
+11. Boot (phase J): two fresh processes (`chip_smoke.py --boot-child
+   off|on`), one after the other, each loading the kernel library the
+   parent built: `boot()` — a CephContext, the kernel library cache
+   (ops/compile_cache), with "on" the prewarm (ops/prewarm.run_once,
+   its widths the storm's stage widths, every entry run: skipped must
+   be 0), the mesh service when configured — then phase H's 4 MiB
+   storm's first write and first recovery pass (4 PGs x 64 x 4 MiB,
+   shard 3).  Each prints its prewarm status, the cache's status, the
+   compile ledger's first-launch and steady submit seconds by kind, and
+   each step's wall and share in launch submits.
+12. Mesh (phase K), k=8 m=3, 4 MiB objects: (a) `boot()` with
+   osd_ec_use_mesh and mesh_devices "1" (a 1x1 MeshService on the card)
+   and an ECBackend through it: 32 writes (plain K1 on the mesh, the
+   crc32c on the host), readback, parity and HashInfo checks, reads
+   with shards 0 and 1 down, shard 3 of all 32 rebuilt in one mesh
+   decode; ec_mesh_drains > 0, ec_mesh_errors 0, mesh_error unset.  (b)
+   DistributedStripeCodec on 4x1 and 2x2 meshes that repeat the card:
+   encode_flat of 8 x 4 MiB, decode_flat_batch of 32 objects missing
+   {0, 9}, clay_repair_batch of k8m4d11's plan (64 x 176) over 32
+   objects' random helper rows, each byte-equal to the single-card
+   plane and launching S*D K1 (K4 for CLAY) applies.  (c) one
+   torch.cuda.nccl.all_gather of a one-member list (the binding; a
+   multi-card gather needs more cards).  GB/s of each, launches and the
+   mesh's gather kind are printed.
+13. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
-its own phase and in the recovery storm), the main paths', the
-benchmark's, the w32 sweep's, the CLAY repair's, the recovery storm's,
-the deep scrub's and the A/B's lines, and as the last line
+its own phase, in the recovery storm and in phase K), the main paths',
+the benchmark's, the w32 sweep's, the CLAY repair's, the recovery
+storm's, the deep scrub's, the boot's, the mesh's and the A/B's lines,
+and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
 """
@@ -674,10 +699,12 @@ def storm_write(backends, rng, size: int, n_objects: int) -> dict:
     return objs
 
 
-def storm_recover(backends, objs, missing) -> dict:
-    """Lose `missing` shards of every object, then recover them in steps
-    of STORM_STEP objects a PG: every PG's recover_shards_submit before
-    any recover_shards_finalize (the two halves of recover_shards_batch),
+def storm_recover(backends, objs, missing, step: int = STORM_STEP,
+                  pool: int = 2) -> dict:
+    """Lose `missing` shards of every object (of `pool`), then recover
+    them in steps of `step` objects a PG: every PG's
+    recover_shards_submit before any recover_shards_finalize (the two
+    halves of recover_shards_batch),
     as an OSD recovering several PGs at once; each rebuilt shard is pushed back
     to its collection with its recovery xattrs.  Every rebuilt shard must
     equal the lost bytes and its crc32c the stored HashInfo's.  Returns
@@ -690,7 +717,7 @@ def storm_recover(backends, objs, missing) -> dict:
     lost = {}
     for (p, name) in objs:
         sh = backends[p].shards
-        o = hobject_t(pool=2, name=name)
+        o = hobject_t(pool=pool, name=name)
         for s in missing:
             g = shard_oid(o, s)
             lost[(p, name, s)] = sh.store.read(sh.cids[s], g).copy()
@@ -703,7 +730,7 @@ def storm_recover(backends, objs, missing) -> dict:
         sh = backends[p].shards
 
         def push(s, data, hinfo):
-            g = shard_oid(hobject_t(pool=2, name=name), s)
+            g = shard_oid(hobject_t(pool=pool, name=name), s)
             t = Transaction()
             t.write(g, 0, data)
             t.setattrs(g, ec_util.recovery_attrs(hinfo, data))
@@ -711,13 +738,13 @@ def storm_recover(backends, objs, missing) -> dict:
             pushed[(p, name, s)] = (data, hinfo)
         return push
 
-    items = [[(hobject_t(pool=2, name=name), list(missing))
+    items = [[(hobject_t(pool=pool, name=name), list(missing))
               for (q, name) in objs if q == p] for p in range(len(backends))]
     t0 = time.perf_counter()
     results = {}
-    for lo in range(0, max(map(len, items)), STORM_STEP):
+    for lo in range(0, max(map(len, items)), step):
         recs = [be.recover_shards_submit(
-            its[lo:lo + STORM_STEP], lambda o, p=p: push_for(p, o.name))
+            its[lo:lo + step], lambda o, p=p: push_for(p, o.name))
             for p, (be, its) in enumerate(zip(backends, items))]
         for p, (be, rec) in enumerate(zip(backends, recs)):
             for o, err in be.recover_shards_finalize(rec).items():
@@ -1191,6 +1218,336 @@ def k2_block_table(bs, sms: int, k3_table: dict, rows) -> dict:
     return {"by_block": by_block, "rows": kernel_rows}
 
 
+# Phase J: boot.  CephContext -> compile cache -> prewarm -> mesh service,
+# as the reference daemon boots (ceph_tpu/osd/daemon.py:475-485,
+# 3785-3819, 3990-4011), then the recovery storm's first write and first
+# recovery pass (phase H's 4 MiB storm: 4 PGs x 64 x 4 MiB, shard 3
+# lost), each in a fresh process, with the prewarm off and on
+BOOT_CHILD_TIMEOUT_S = 300
+BOOT_BUDGET_S = 60.0
+# the storm's stage widths: 512 KiB runs a shard (4 MiB objects at k=8),
+# coalesced up to 8 a launch (the queue's 32 MiB cap), decoded one object
+# a launch (each wider than the 64 KiB decode cap)
+BOOT_PREWARM = {"widths": [(BIG // K) * r for r in (1, 2, 4, 8)],
+                "run_counts": [1, 2, 4, 8],
+                "decode_widths": [BIG // K]}
+
+
+def boot(conf: dict, plugin, prewarm_kwargs: dict | None = None):
+    """The port's boot sequence: a CephContext configured from `conf`,
+    the kernel library cache (osd_ec_compile_cache[_dir]), the prewarm of
+    `plugin`'s buckets (osd_ec_prewarm, its budget
+    osd_ec_prewarm_budget_s) seeding the host's flight recorder, and the
+    host's MeshService (osd_ec_use_mesh, mesh_devices).  Returns (cct,
+    the prewarm status or None, the service or None)."""
+    from ceph_tpu_torch.common.context import CephContext
+    from ceph_tpu_torch.ops import compile_cache, prewarm
+    from ceph_tpu_torch.ops.profiler import device_profiler
+    from ceph_tpu_torch.parallel.service import MeshService
+    cct = CephContext("osd.0")
+    for key, value in conf.items():
+        cct.conf.set(key, value)
+    if cct.conf.get("osd_ec_compile_cache"):
+        compile_cache.enable(
+            str(cct.conf.get("osd_ec_compile_cache_dir")) or None)
+    prof = device_profiler()
+    prof.set_ring_size(int(cct.conf.get("osd_ec_profiler_ring")))
+    status = None
+    if cct.conf.get("osd_ec_prewarm"):
+        status = prewarm.run_once(
+            plugin, profiler=prof,
+            budget_s=float(cct.conf.get("osd_ec_prewarm_budget_s")),
+            **(prewarm_kwargs or {}))
+    svc = None
+    if cct.conf.get("osd_ec_use_mesh"):
+        svc = MeshService.get_or_configure(str(cct.conf.get("mesh_devices")))
+    return cct, status, svc
+
+
+def ledger_by_kind(ledger: dict) -> dict:
+    """The compile ledger's buckets by kind (the label's prefix): how
+    many, how many prewarmed, the largest and summed first-launch
+    seconds, and the least steady (later) submit seconds."""
+    out = {}
+    for row in ledger["buckets"]:
+        kind = row["bucket"].split(":")[0]
+        e = out.setdefault(kind, {"buckets": 0, "prewarmed": 0,
+                                  "first_s_max": 0.0, "first_s_sum": 0.0,
+                                  "steady_s_min": None})
+        e["buckets"] += 1
+        e["prewarmed"] += row["prewarmed"]
+        e["first_s_max"] = max(e["first_s_max"], row["first_s"])
+        e["first_s_sum"] += row["first_s"]
+        if row["steady_s"] is not None:
+            e["steady_s_min"] = row["steady_s"] if e["steady_s_min"] is None \
+                else min(e["steady_s_min"], row["steady_s"])
+    return out
+
+
+def boot_child(mode: str) -> int:
+    """One phase J boot, in its own process: boot (prewarm `mode` "on"
+    or "off"), then the 4 MiB storm's first write and first recovery
+    pass through one ECLaunchQueue.  Prints one JSON line."""
+    from ceph_tpu_torch import resolve_device
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops import compile_cache
+    from ceph_tpu_torch.ops.profiler import device_profiler
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.store import MemStore
+    t0 = time.perf_counter()
+    dev = resolve_device("cuda")
+    profile = {"k": str(K), "m": str(M), "device": str(dev)}
+    plugin = ErasureCodePluginRegistry.instance().factory("torch", profile)
+    _cct, status, _svc = boot({"osd_ec_prewarm": mode == "on",
+                               "osd_ec_prewarm_budget_s": BOOT_BUDGET_S},
+                              plugin, BOOT_PREWARM)
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    prof = device_profiler()
+    rng = np.random.default_rng(SEED)
+    store = MemStore()
+    store.mount()
+    queue = ECLaunchQueue(window_us=STORM_WINDOW_US, device=dev)
+    try:
+        backends = storm_pgs(dev, queue, "torch", profile, N_STORM_PGS,
+                             store)
+        bs.reset_launch_counts()
+        before = storm_snapshot(queue, prof)
+        t1 = time.perf_counter()
+        objs = storm_write(backends, rng, BIG, N_STORM_OBJECTS)
+        torch.cuda.synchronize()
+        write = storm_counts(bs, queue, prof, before)
+        write["wall_s"] = time.perf_counter() - t1
+        bs.reset_launch_counts()
+        before = storm_snapshot(queue, prof)
+        recover = storm_recover(backends, objs, (3,))
+        recover.update(storm_counts(bs, queue, prof, before))
+    finally:
+        queue.close()
+    for step in (write, recover):
+        step["submit_share"] = step["launch_submit_s"] / step["wall_s"]
+    if write["kernel_launches"]["fused_hier_acc_call"] <= 0 or \
+            recover["kernel_launches"]["gf_bitmatmul"] <= 0:
+        raise AssertionError(f"boot {mode}: the storm missed its kernels")
+    ledger = prof.compile_ledger()
+    print(json.dumps({"mode": mode, "boot_s": boot_s, "prewarm": status,
+                      "compile_cache": compile_cache.status(),
+                      "ledger_by_kind": ledger_by_kind(ledger),
+                      "compile_stalls": ledger["compile_stalls"],
+                      "write": write, "recover": recover}), flush=True)
+    return 0
+
+
+def phase_boot() -> dict:
+    """Phase J: two fresh processes, one after the other, each loading
+    the kernel library the parent built: prewarm off, then on.  Each
+    must rebuild every lost shard; the prewarm must run every entry
+    (skipped 0) and load the library rather than build it."""
+    report = {"card": nvidia_smi_line()}
+    for mode in ("off", "on"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--boot-child", mode],
+            capture_output=True, text=True, timeout=BOOT_CHILD_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"boot {mode} exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        if res["compile_cache"]["kernel_library"]["builds_in_process"] or \
+                not res["compile_cache"]["enabled"]:
+            raise AssertionError(f"boot {mode} did not load the parent's "
+                                 f"library: {res['compile_cache']}")
+        st = res["prewarm"]
+        if mode == "on" and (st is None or st["skipped"] or
+                             st["done"] != st["planned"] or st["compiles"]):
+            raise AssertionError(f"boot prewarm incomplete: {st}")
+        if st is not None:
+            st.pop("buckets")
+        report[mode] = res
+        print(f"# boot prewarm={mode}: boot {res['boot_s']:.3f} s; first "
+              f"write {res['write']['wall_s']:.4f} s, "
+              f"{100 * res['write']['submit_share']:.1f}% in launch "
+              f"submits; first recovery {res['recover']['wall_s']:.4f} s, "
+              f"{100 * res['recover']['submit_share']:.1f}% in launch "
+              f"submits" + (f"; prewarm {st['done']}/{st['planned']} "
+                            f"entries, skipped {st['skipped']}, "
+                            f"{st['total_s']} s" if st else ""), flush=True)
+    return report
+
+
+# Phase K: the mesh.  k=8 m=3 (ISA-L's canonical profile), 4 MiB objects
+# (RBD's object size); the service mesh is 1x1 on the card, the sharded
+# meshes 4x1 and 2x2 repeat the card, a 1x1 mesh is their control (one
+# launch a call, the single-card plane's shape)
+N_MESH_OBJECTS = 32
+MESH_LOST = (3,)
+MESH_DECODE_ERASED = (0, 9)
+SHARDED_MESHES = ((1, 1), (4, 1), (2, 2))
+MESH_TIMED_RUNS = 3
+
+
+def phase_mesh(dev, rng) -> tuple[dict, dict]:
+    """Phase K: (a) the service mesh through boot(): MeshService "1"
+    (1x1 on the card) and an ECBackend through it: 32 x 4 MiB writes
+    (plain-encoded on the mesh, crcs on the host), every object read back
+    and read with shards 0 and 1 down, then shard 3 of all 32 objects
+    lost and rebuilt in one recover_shards_batch (one mesh decode);
+    ec_mesh_drains > 0, ec_mesh_errors == 0, mesh_error None.  (b) 4x1
+    and 2x2 meshes repeating the card (and a 1x1 control): encode_flat
+    of 8 x 4 MiB, decode_flat_batch of 32 objects missing {0, 9},
+    clay_repair_batch on k8m4d11's plan over 32 objects, each byte-equal
+    to the single-card plane (the torch plugin, ClayRepairPlan.
+    apply_batch); the median wall of MESH_TIMED_RUNS calls.  (c) one
+    torch.cuda.nccl.all_gather of a one-member list.  Returns (launch
+    counts by step, the report)."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.parallel import ClayRepairPlan
+    from ceph_tpu_torch.parallel.mesh import DistributedStripeCodec, make_mesh
+    from ceph_tpu_torch.parallel.service import MeshService
+
+    report = {"card": nvidia_smi_line()}
+    counts = {}
+    MeshService.reset()
+    try:
+        _cct, _st, svc = boot({"osd_ec_use_mesh": True, "mesh_devices": "1"},
+                              None)
+        codec, sinfo, store, shards, be = make_backend(dev, None, svc)
+        if be.mesh_codec is None:
+            raise AssertionError(f"no mesh codec: {be.mesh_error}")
+        w = Writer(be, rng)
+        data = {f"mesh{i}": w.payload(BIG) for i in range(N_MESH_OBJECTS)}
+        torch.cuda.synchronize()
+        bs.reset_launch_counts()
+        t0 = time.perf_counter()
+        with be.pipeline():
+            for name, payload in data.items():
+                w.submit(name, 0, payload)
+        t_write = time.perf_counter() - t0
+        counts["mesh_service_write"] = bs.launch_counts()
+        if w.acks != list(range(1, w.version + 1)):
+            raise AssertionError("mesh writes: acks out of order or missing")
+        w.check_readback()
+        check_parity(codec, sinfo, store, shards, w,
+                     f"mesh{N_MESH_OBJECTS - 1}")
+        n_crc = check_crcs(store, shards, w)
+        if n_crc != N_MESH_OBJECTS:
+            raise AssertionError(f"only {n_crc} mesh objects carry a crc")
+        bs.reset_launch_counts()
+        nread, t_deg = degraded_reads(be, shards, w, data)
+        counts["mesh_service_read"] = bs.launch_counts()
+        objs = {(0, name): payload for name, payload in data.items()}
+        bs.reset_launch_counts()
+        rec = storm_recover([be], objs, MESH_LOST, step=N_MESH_OBJECTS,
+                            pool=1)
+        counts["mesh_service_recover"] = bs.launch_counts()
+        dump = be.perf.dump()
+        mesh = {c: dump[c] for c in ("ec_mesh_drains",
+                                     "ec_mesh_repair_launches",
+                                     "ec_mesh_errors")}
+        if be.mesh_error is not None or mesh["ec_mesh_errors"] or \
+                mesh["ec_mesh_drains"] <= 0 or \
+                mesh["ec_mesh_repair_launches"] != 1:
+            raise AssertionError(f"mesh plane: {mesh}, {be.mesh_error}")
+        for step in ("write", "read", "recover"):
+            if counts[f"mesh_service_{step}"]["gf_bitmatmul"] <= 0:
+                raise AssertionError(f"mesh {step}: no K1 launch")
+        report["service"] = {
+            "status": svc.status(), "backend": be.mesh_status(),
+            "counters": mesh, "objects": N_MESH_OBJECTS,
+            "write_GBps": N_MESH_OBJECTS * BIG / t_write / 1e9,
+            "write_s": t_write,
+            "degraded_read_GBps": nread / t_deg / 1e9,
+            "degraded_read_s": t_deg, "recover": rec}
+        print(f"# mesh service 1x1 (gather {svc.mesh.gather}): write "
+              f"{report['service']['write_GBps']:.4f} GB/s, degraded read "
+              f"{report['service']['degraded_read_GBps']:.4f} GB/s, "
+              f"recovery {rec['rebuilt_GBps']:.4f} GB/s rebuilt; {mesh}",
+              flush=True)
+    finally:
+        MeshService.reset()
+
+    # (b) sharded meshes repeating the card, against the single-card plane
+    data = np.frombuffer(rng.bytes(K * 8 * (BIG // K)), dtype=np.uint8) \
+        .reshape(K, -1)
+    survivors = tuple(s for s in range(K + M)
+                      if s not in MESH_DECODE_ERASED)[:K]
+    objs = [np.frombuffer(rng.bytes(BIG), dtype=np.uint8).reshape(K, -1)
+            for _ in range(N_MESH_OBJECTS)]
+    full = [np.concatenate([o, codec.encode_chunks(o)]) for o in objs]
+    avail = [f[list(survivors)] for f in full]
+    ck, cm, cd = CLAY_PROFILES["k8m4d11"]
+    clay = clay_codec(ck, cm, cd)
+    plan = ClayRepairPlan.build(clay, CLAY_STORM_LOST, device=dev)
+    rows = [np.frombuffer(rng.bytes(plan.in_rows * clay_sub_size(clay)),
+                          dtype=np.uint8).reshape(plan.in_rows, -1)
+            for _ in range(N_MESH_OBJECTS)]
+    single = {"encode": codec.encode_chunks(data),
+              "decode": [codec.decode_chunks(f, list(MESH_DECODE_ERASED))
+                         [list(MESH_DECODE_ERASED)] for f in full],
+              "clay": plan.apply_batch(rows)}
+    for n_shard, n_data in SHARDED_MESHES:
+        name = f"{n_shard}x{n_data}"
+        dcodec = DistributedStripeCodec(
+            K, M, make_mesh(n_shard, n_data, [dev] * (n_shard * n_data)))
+        res = {"gather": dcodec.mesh.gather}
+        steps = (
+            ("encode", data.size,
+             lambda: dcodec.encode_flat(data),
+             lambda got: np.array_equal(got, single["encode"])),
+            ("decode", sum(a.size for a in avail),
+             lambda: dcodec.decode_flat_batch(avail, survivors,
+                                              MESH_DECODE_ERASED),
+             lambda got: all(np.array_equal(g, s)
+                             for g, s in zip(got, single["decode"]))),
+            ("clay", sum(r.size for r in rows),
+             lambda: dcodec.clay_repair_batch(plan, rows),
+             lambda got: all(np.array_equal(g, s)
+                             for g, s in zip(got, single["clay"]))))
+        for step, nbytes, run, same in steps:
+            run()                       # tables built, first launch done
+            torch.cuda.synchronize()
+            bs.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = run()
+            walls = [time.perf_counter() - t0]
+            counts[f"mesh_{name}_{step}"] = bs.launch_counts()
+            for _ in range(MESH_TIMED_RUNS - 1):
+                t0 = time.perf_counter()
+                run()
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls)
+            if not same(got):
+                raise AssertionError(f"mesh {name} {step} differs from the "
+                                     "single-card plane")
+            k1 = counts[f"mesh_{name}_{step}"]["gf_bitmatmul"]
+            k4 = counts[f"mesh_{name}_{step}"]["gf_bitmatmul_stream"]
+            want = (0, n_shard * n_data) if step == "clay" \
+                else (n_shard * n_data, 0)
+            if (k1, k4) != want:
+                raise AssertionError(f"mesh {name} {step}: K1 {k1}, K4 {k4} "
+                                     f"launches, expected {want}")
+            res[step] = {"in_bytes": nbytes, "wall_s": wall,
+                         "walls_s": walls,
+                         "GBps": nbytes / wall / 1e9, "k1": k1, "k4": k4}
+            print(f"# mesh {name} (gather {dcodec.mesh.gather}) {step}: "
+                  f"{nbytes / wall / 1e9:.3f} GB/s in, K1 {k1}, K4 {k4}",
+                  flush=True)
+        report[name] = res
+
+    # (c) the NCCL binding: one all_gather of a one-member list
+    x = torch.arange(1024, device=dev).to(torch.uint8)
+    out = torch.empty_like(x)
+    torch.cuda.nccl.all_gather([x], [out])
+    torch.cuda.synchronize()
+    if not torch.equal(out, x):
+        raise AssertionError("nccl all_gather of one member differs")
+    report["nccl"] = {"all_gather_one_member": "ok",
+                      "version": torch.cuda.nccl.version()}
+    print(f"# nccl {torch.cuda.nccl.version()}: one-member all_gather ok",
+          flush=True)
+    return counts, report
+
+
 def pin_point(cache_file, dev, point: dict) -> None:
     """Pin the fused write path's operating point the way an operator
     does: a cache row for this card's key, and CEPH_TPU_AUTOTUNE_CACHE
@@ -1202,9 +1559,11 @@ def pin_point(cache_file, dev, point: dict) -> None:
     os.environ["CEPH_TPU_AUTOTUNE_CACHE"] = str(cache_file)
 
 
-def make_backend(dev, stages):
+def make_backend(dev, stages, mesh_service=None):
     """A torch codec (its point read from the autotune cache) and an
-    ECBackend over MemStore whose shards can be made to fail reads."""
+    ECBackend over MemStore whose shards can be made to fail reads;
+    `stages` None keeps the backend's own counters, and a MeshService
+    puts it on the mesh plane."""
     from ceph_tpu_torch.ec import ErasureCodePluginRegistry
     from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
     from ceph_tpu_torch.osd.ec_util import StripeInfo
@@ -1227,7 +1586,8 @@ def make_backend(dev, stages):
     store = MemStore()
     store.mount()
     shards = DegradedShards(store, pg_t(1, 0), K + M)
-    be = ECBackend(codec, sinfo, shards, dispatch_depth=2, perf=stages)
+    be = ECBackend(codec, sinfo, shards, dispatch_depth=2, perf=stages,
+                   mesh_service=mesh_service)
     return codec, sinfo, store, shards, be
 
 
@@ -1830,6 +2190,10 @@ def main() -> int:
         storm_counts, storm = phase_recovery_storm(dev, rng)
         scrub_counts, scrub = phase_deep_scrub(dev, rng)
         counts.update(scrub_counts)
+        pin_point(tmp / "pinned_boot.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        boot_report = phase_boot()
+        mesh_counts, mesh = phase_mesh(dev, rng)
         ab = phase_ab()
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
@@ -1842,10 +2206,12 @@ def main() -> int:
             # K2's narrow branch: its launches over every phase
             row["launches"] = narrow_launches
             row["recovery_storm_launches"] = None
+            row["mesh_launches"] = None
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
             c[counter] for c in storm_counts.values())
+        row["mesh_launches"] = sum(c[counter] for c in mesh_counts.values())
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -1868,6 +2234,9 @@ def main() -> int:
     print(json.dumps({"deep_scrub": scrub,
                       "deep_scrub_launch_counts": scrub_counts}),
           flush=True)
+    print(json.dumps({"boot": boot_report}), flush=True)
+    print(json.dumps({"mesh": mesh, "mesh_launch_counts": mesh_counts}),
+          flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1876,4 +2245,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--boot-child":
+        sys.exit(boot_child(sys.argv[2]))
     sys.exit(main())

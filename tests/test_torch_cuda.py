@@ -526,16 +526,20 @@ def test_queue_window_worker_launches_on_card(cuda_device):
     try:
         rng = np.random.default_rng(5)
         cpu = reg.factory("torch", {"k": "4", "m": "2", "device": "cpu"})
-        tickets, want = [], []
+        # both PGs' codecs, inputs and CPU oracles exist before the first
+        # submit: building a codec on the card between the two submits
+        # can outlast the 2 ms window and launch the first decode alone
+        pgs = []
         for owner, w in ((1, 4096), (2, 1000)):
             codec = reg.factory("torch", {"k": "4", "m": "2",
                                           "device": str(cuda_device)})
             data = rng.integers(0, 256, (4, w), dtype=np.uint8)
             dense = np.concatenate([data, cpu.encode_chunks(data)])
             dense[1] = 0
-            want.append(cpu.decode_chunks(dense, [1]))
-            tickets.append(queue.submit_decode(codec, dense, [1],
-                                               owner=owner))
+            pgs.append((owner, codec, dense, cpu.decode_chunks(dense, [1])))
+        want = [oracle for _o, _c, _d, oracle in pgs]
+        tickets = [queue.submit_decode(codec, dense, [1], owner=owner)
+                   for owner, codec, dense, _oracle in pgs]
         deadline = time.time() + 10
         while queue.status()["launches"] < 1 and time.time() < deadline:
             time.sleep(0.005)
@@ -689,3 +693,110 @@ def test_scrub_with_repair_on_card_matches_cpu(cuda_device):
     (rg, dg, hg, cg), (rc, dc, hc, _) = out
     assert (rg, dg, hg) == (rc, dc, hc)
     assert cg["crc32c_rows_l"] >= 2 and cg["gf_bitmatmul"] >= 1
+
+
+# -- the mesh, the mesh service and prewarm on the card ----------------------
+
+def test_sharded_mesh_on_card_matches_plugin(cuda_device):
+    """A 2x2 mesh that repeats the card (each device's share by K1, the
+    partials folded on the card) equals the torch plugin's encode and
+    decode on the card, bytes exact."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.parallel.mesh import DistributedStripeCodec, make_mesh
+    codec = ErasureCodePluginRegistry.instance().factory(
+        "torch", {"k": "8", "m": "3", "device": str(cuda_device)})
+    mesh = make_mesh(2, 2, [cuda_device] * 4)
+    assert mesh.gather == "local"
+    dcodec = DistributedStripeCodec(8, 3, mesh)
+    rng = np.random.default_rng(61)
+    chunks = rng.integers(0, 256, (8, (256 << 10) + 48), dtype=np.uint8)
+    before = bs.gf_bitmatmul.launches
+    parity = dcodec.encode_flat(chunks)
+    assert bs.gf_bitmatmul.launches == before + 4
+    np.testing.assert_array_equal(parity, codec.encode_chunks(chunks))
+    dense = np.concatenate([chunks, parity])
+    erased = (0, 9)
+    survivors = tuple(s for s in range(11) if s not in erased)[:8]
+    got = dcodec.decode_flat_batch([dense[list(survivors)]] * 2, survivors,
+                                   erased)
+    want = codec.decode_chunks(dense, list(erased))
+    for rows in got:
+        for i, e in enumerate(erased):
+            np.testing.assert_array_equal(rows[i], want[e])
+
+
+def test_mesh_service_backend_on_card(cuda_device):
+    """A 1x1 MeshService on the card serves an ECBackend: the drain is
+    plain-encoded on the mesh, degraded reads rebuild through it, every
+    object reads back and the mesh counters say so."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.osd.ec_backend import ECBackend, LocalShardBackend
+    from ceph_tpu_torch.osd.ec_transaction import PGTransaction
+    from ceph_tpu_torch.osd.ec_util import StripeInfo
+    from ceph_tpu_torch.osd.types import eversion_t, hobject_t, pg_t
+    from ceph_tpu_torch.parallel.service import MeshService
+    from ceph_tpu_torch.store import MemStore
+    MeshService.reset()
+    try:
+        svc = MeshService.configure("1")
+        assert svc.status()["shape"] == {"shard": 1, "data": 1}
+        codec = ErasureCodePluginRegistry.instance().factory(
+            "torch", {"k": "8", "m": "3", "device": str(cuda_device)})
+        store = MemStore()
+        store.mount()
+
+        class Degraded(LocalShardBackend):
+            down: set = set()
+
+            def sub_read(self, shard, oid, off, length, on_done):
+                if shard in self.down:
+                    on_done(shard, None)
+                    return
+                super().sub_read(shard, oid, off, length, on_done)
+        shards = Degraded(store, pg_t(1, 0), 11)
+        be = ECBackend(codec, StripeInfo(8 * 4096, 4096), shards,
+                       mesh_service=svc)
+        assert be.mesh_codec is not None, be.mesh_error
+        rng = np.random.default_rng(63)
+        objs = {f"m{i}": rng.integers(0, 256, 1 << 20, dtype=np.uint8)
+                for i in range(4)}
+        with be.batch():
+            for i, (name, data) in enumerate(objs.items()):
+                txn = PGTransaction()
+                txn.write(hobject_t(pool=1, name=name), 0, data)
+                be.submit_transaction(txn, eversion_t(1, i + 1),
+                                      lambda: None)
+        shards.down = {0, 1}
+        for name, data in objs.items():
+            np.testing.assert_array_equal(
+                be.read(hobject_t(pool=1, name=name)), data)
+        dump = be.perf.dump()
+        assert dump["ec_mesh_drains"] >= 1 and dump["ec_mesh_errors"] == 0
+        assert be.mesh_error is None
+    finally:
+        MeshService.reset()
+
+
+def test_prewarm_run_once_on_card(cuda_device):
+    """The boot prewarm's default plan runs every entry on the card:
+    skipped == 0, and its fused entries took the kernels."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.ops import compile_cache, prewarm
+    from ceph_tpu_torch.ops.profiler import DeviceProfiler
+    prewarm.reset_for_tests()
+    compile_cache.reset_for_tests()
+    try:
+        assert compile_cache.enable()
+        codec = _pin(ErasureCodePluginRegistry.instance().factory(
+            "torch", {"k": "8", "m": "3", "device": str(cuda_device)}),
+            "kernel")
+        prof = DeviceProfiler()
+        st = prewarm.run_once(codec, profiler=prof, budget_s=120.0)
+        assert st["skipped"] == 0 and st["done"] == st["planned"]
+        assert not st["truncated"]
+        assert st["persistent_cache"]["enabled"]
+        assert prof.prewarm_summary()["buckets"] == len(set(st["buckets"]))
+    finally:
+        prewarm.reset_for_tests()
+        compile_cache.reset_for_tests()
