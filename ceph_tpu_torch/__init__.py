@@ -11,7 +11,7 @@ that lie on the CPU.
 Layer map:
   common/   crc32c (numpy tables), perf counters, native CPU library,
             config options, dout logging, admin socket, CephContext,
-            small helpers
+            op tracking, lockdep, buffers, small helpers
   ec/       codec interface, GF(2^8) matrices, registry, plugins (`torch`
             on the card; `isa`, `jerasure`, `example`, `clay`, `lrc`,
             `shec` on the host)
@@ -21,9 +21,15 @@ Layer map:
   parallel/ the sharded stripe codec over a device mesh and its per-host
             MeshService, the per-host launch queue, the CLAY repair plan
   osd/      ECBackend write/read/recovery pipeline, ECUtil, ECTransaction,
-            PG log
-  store/    ObjectStore contract + MemStore
-  tools/    ec_benchmark and the kernel sweeps
+            PG log, the OSDMap, the OSD daemon
+  crush/    CRUSH placement
+  msg/      the messenger and its typed messages
+  mon/      the monitor, its Paxos quorum and store
+  auth/     cephx tickets and authorizers; compressor/ frame compression
+  cls/      object classes the daemon runs (lock, numops, log, ...)
+  osdc/     the objecter; rados/ the RADOS client
+  store/    ObjectStore contract + MemStore, the in-memory kv store
+  tools/    ec_benchmark, the kernel sweeps, the vstart dev cluster
   csrc/     CUDA C++ kernels (sm_90a)
 
 Entry points run on the card unless the caller asks for the CPU

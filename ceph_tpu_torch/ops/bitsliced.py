@@ -1137,6 +1137,17 @@ def gf_encode_extents_with_crc_submit(tables: torch.Tensor, runs,
     padded = [np.pad(r, ((0, 0), (p, 0) if acc else (0, p))) if p else r
               for r, p in zip(runs, pads)]
     big = padded[0] if len(padded) == 1 else np.concatenate(padded, axis=1)
+    if not big.shape[1]:
+        # every run is empty (an object create): nothing to launch, and
+        # each run's parity is empty with no L (ceph_tpu launches one
+        # zero tile here, its pow2 bucket of zero tiles)
+        return {"meta": meta, "padded": padded, "block_bytes": block,
+                "pads": [0] * len(runs), "acc": False, "r_tot": k + m,
+                "m": m, "big_width": 0,
+                "path": "w32_flat" if use_w32 else "bytes",
+                "has_l": [False] * len(runs), "staged": None,
+                "parity_host": torch.zeros((m, 0), dtype=torch.uint8),
+                "l_host": None, "event": None}
     staged, dev = stage(big, device)
     if acc:
         parity_dev, l_dev, staged_ends = _hier_acc_core(

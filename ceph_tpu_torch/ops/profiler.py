@@ -84,12 +84,12 @@ class LaunchRecord:
     reference's op-trace ids come with tracked ops, not ported yet)."""
 
     __slots__ = ("launch_id", "kind", "codec", "bucket", "path",
-                 "runs", "nbytes", "pg_mix", "queue_wait_s",
+                 "runs", "nbytes", "pg_mix", "traces", "queue_wait_s",
                  "submit_s", "device_s", "compiled", "compile_s",
                  "cache_hit", "ts", "_t0", "_builds0")
 
     def __init__(self, launch_id: int, kind: str, codec: str,
-                 runs: int, nbytes: int, pg_mix: int,
+                 runs: int, nbytes: int, pg_mix: int, traces,
                  queue_wait_s: float):
         self.launch_id = launch_id
         self.kind = kind
@@ -99,6 +99,9 @@ class LaunchRecord:
         self.runs = runs
         self.nbytes = nbytes
         self.pg_mix = pg_mix
+        # the contributing ops' trace ids, bounded: a super-batch of
+        # many ops keeps the first few
+        self.traces = tuple(traces)[:8]
         self.queue_wait_s = queue_wait_s
         self.submit_s = 0.0
         self.device_s = 0.0
@@ -123,6 +126,7 @@ class LaunchRecord:
             "runs": self.runs,
             "bytes": self.nbytes,
             "pg_mix": self.pg_mix,
+            "traces": list(self.traces),
             "queue_wait_ms": round(self.queue_wait_s * 1e3, 3),
             "submit_ms": round(self.submit_s * 1e3, 3),
             "device_ms": round(self.device_s * 1e3, 3),
@@ -198,7 +202,7 @@ class DeviceProfiler:
     # -- recording -----------------------------------------------------------
 
     def begin(self, kind: str, codec: str = "", runs: int = 1,
-              nbytes: int = 0, pg_mix: int = 1,
+              nbytes: int = 0, pg_mix: int = 1, traces=(),
               queue_wait_s: float = 0.0) -> LaunchRecord | None:
         """Start a launch record (call IMMEDIATELY before the device
         submit — the record's t0 anchors the submit wall clock).
@@ -209,7 +213,7 @@ class DeviceProfiler:
             lid = self._next_id
             self._next_id += 1
         return LaunchRecord(lid, kind, codec, runs, nbytes, pg_mix,
-                            queue_wait_s)
+                            traces, queue_wait_s)
 
     def submitted(self, rec: LaunchRecord | None, bucket: str,
                   path: str | None = None, jit: bool = True) -> None:

@@ -60,11 +60,23 @@ recovery), and `_disable_mesh` moves every later op there, counted in
 the same kernels on the codec's own device.
 
 Shard I/O goes through the ShardBackend seam; LocalShardBackend applies
-to a local ObjectStore (the MemStore topology).
+to a local ObjectStore (the MemStore topology), and the OSD daemon's
+MessengerShardBackend (osd/daemon.py) sends each shard's sub-write and
+sub-read across the messenger to the acting set.
 
-Not part of this module (yet): mClock-scheduled recovery and tracked
-ops.  The counters default to `_build_ec_perf`'s set; any object with
-inc, set and tinc may stand in (`perf=`).
+The daemon is this module's caller in a cluster: its primary PGs
+submit client writes with their tracked op (`top=`,
+common/tracked_op.py), so every op's timeline records its encode
+launch, the flight recorder's launch ids that served it (and a first
+build that stalled), its materialize, and each shard's sub-write sent
+and acked; the ops' trace ids ride the launch records.  With
+`ec_dispatch_ahead` the daemon holds the dispatch-ahead window open
+for good (`set_pipelined`): a flush timer completes the last drains
+when the op stream goes idle, and `inflight_ops` lists the ops on the
+card for `dump_ops_in_flight`.  The daemon also runs recovery under the
+mClock recovery class and its repair throttle, and deep scrub through
+osd/scrub.py.  The counters default to `_build_ec_perf`'s set; any
+object with inc, set and tinc may stand in (`perf=`).
 """
 
 from __future__ import annotations
@@ -72,7 +84,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Callable
 
@@ -81,6 +93,7 @@ import torch
 
 from .. import resolve_device
 from ..common import crc32c as _crc
+from ..common.tracked_op import NULL_TRACKED
 from ..common.util import concat_columns, split_columns
 from ..ec.interface import ErasureCodeError, ErasureCodeInterface
 from ..ops.profiler import device_profiler
@@ -104,9 +117,13 @@ class ShardBackend:
     def sub_write(self, shard: int, txn: Transaction,
                   on_commit: Callable[[int], None],
                   log_entries: list | None = None,
-                  at_version=None, rollforward_to=None) -> None:
+                  at_version=None, rollforward_to=None,
+                  trace: dict | None = None, top=None) -> None:
         """Apply txn on `shard`; log_entries (pg_log.LogEntry) persist
-        atomically with it (reference ECSubWrite.log_entries)."""
+        atomically with it (reference ECSubWrite.log_entries).  trace
+        is an optional child TraceContext wire dict: remote transports
+        forward it so the shard holder's sub-op span stitches under the
+        primary's op span."""
         raise NotImplementedError
 
     def sub_read(self, shard: int, oid: hobject_t, off: int, length: int,
@@ -161,7 +178,10 @@ class LocalShardBackend(ShardBackend):
                            for s in range(n_shards)}
 
     def sub_write(self, shard, txn, on_commit, log_entries=None,
-                  at_version=None, rollforward_to=None):
+                  at_version=None, rollforward_to=None, trace=None,
+                  top=None):
+        # trace, top: wire-plane trace stitching; local shards have no
+        # wire, so they are accepted and unused here
         slog = self.shard_logs[shard]
         if log_entries and at_version is not None:
             slog.append_to_txn(txn, log_entries, at_version)
@@ -228,6 +248,9 @@ class ECOp:
     # extents this op actually pinned in the ExtentCache: release must
     # mirror exactly the present() calls
     pinned: list[tuple[hobject_t, int, int]] = field(default_factory=list)
+    # per-op trace/timeline (common/tracked_op.py); NULL_TRACKED when
+    # tracking is off, and every mark_event below is then a no-op
+    top: object = NULL_TRACKED
 
 
 @dataclass
@@ -403,6 +426,9 @@ class ECBackend:
         self._inflight: "deque[_Drain]" = deque()
         self._pipeline_win = 0        # pipeline() windows currently open
         self._completing = False      # re-entrancy guard for completion
+        # persistent dispatch-ahead (set_pipelined): the flush timer
+        self._auto_flush_ms: float | None = None
+        self._flush_timer = None
         # projected end-of-chunk per object across in-flight drains: the
         # submit-time append/fused decision for drain N+1 must see the
         # sizes drain N will produce
@@ -556,6 +582,37 @@ class ECBackend:
             if self.perf:
                 self.perf.set("ec_inflight_depth", 0)
 
+    def set_pipelined(self, flush_ms: float = 2.0) -> None:
+        """Persistent dispatch-ahead (daemon mode): the window never
+        closes, so a flush timer bounds the commit latency of the last
+        drains when the op stream goes idle."""
+        with self.lock:
+            self._pipeline_win += 1
+            self._auto_flush_ms = max(0.1, float(flush_ms))
+
+    def _arm_auto_flush(self) -> None:
+        if self._auto_flush_ms is None or self._flush_timer is not None:
+            return
+
+        def _fire():
+            with self.lock:
+                self._flush_timer = None
+            # the timer's own thread: select the backend's card first
+            with (torch.cuda.device(self.device)
+                  if self.device.type == "cuda" else nullcontext()):
+                self.flush_pipeline()
+
+        t = threading.Timer(self._auto_flush_ms / 1000.0, _fire)
+        t.daemon = True
+        self._flush_timer = t
+        t.start()
+
+    def inflight_ops(self) -> list[ECOp]:
+        """Ops submitted to the device pipeline, not yet committing
+        (for dump_ops_in_flight)."""
+        with self.lock:
+            return [op for d in self._inflight for op in d.ops]
+
     # -- object metadata helpers -------------------------------------------
 
     def _fetch_hinfo(self, oid: hobject_t) -> HashInfo | None:
@@ -583,10 +640,12 @@ class ECBackend:
     # -- entry (reference submit_transaction :1483 / start_rmw :1839) ------
 
     def make_op(self, txn: PGTransaction,
-                on_commit: Callable[[], None]) -> ECOp:
+                on_commit: Callable[[], None], top=None) -> ECOp:
         """Stage an op without entering the pipeline: prefetches object
-        metadata so no lock is held during the probe."""
-        op = ECOp(txn, eversion_t(), on_commit)
+        metadata so no lock is held during the probe.  top: the op's
+        tracked timeline (common/tracked_op.py), NULL_TRACKED if None."""
+        op = ECOp(txn, eversion_t(), on_commit,
+                  top=top if top is not None else NULL_TRACKED)
         for oid in txn.ops:
             if oid not in self._projected:
                 op.meta[oid] = self.shards.probe(oid, self.n)
@@ -601,8 +660,10 @@ class ECBackend:
         return op
 
     def submit_transaction(self, txn: PGTransaction, version: eversion_t,
-                           on_commit: Callable[[], None]) -> ECOp:
-        return self.enqueue(self.make_op(txn, on_commit), version)
+                           on_commit: Callable[[], None],
+                           top=None) -> ECOp:
+        return self.enqueue(self.make_op(txn, on_commit, top=top),
+                            version)
 
     # -- pipeline (reference check_ops :2151) -------------------------------
 
@@ -732,17 +793,17 @@ class ECBackend:
         """Overlay new writes on pre-read/zero background for one
         stripe-aligned extent."""
         buf = np.zeros(e.length, dtype=np.uint8)
-        rd = op.read_data.get((oid, e.off))
-        if rd is not None:
-            buf[: rd.size] = rd
-        else:
-            for (roid, roff), data in op.read_data.items():
-                if roid != oid:
-                    continue
-                lo = max(e.off, roff)
-                hi = min(e.end, roff + data.size)
-                if lo < hi:
-                    buf[lo - e.off:hi - e.off] = data[lo - roff:hi - roff]
+        # every pre-read that overlaps the extent: a write spanning
+        # stripes pre-reads its head and its tail stripe apart (ceph_tpu
+        # takes only the read keyed at the extent's start when there is
+        # one, and so drops the tail stripe's bytes after the write)
+        for (roid, roff), data in op.read_data.items():
+            if roid != oid:
+                continue
+            lo = max(e.off, roff)
+            hi = min(e.end, roff + data.size)
+            if lo < hi:
+                buf[lo - e.off:hi - e.off] = data[lo - roff:hi - roff]
         # bytes assembled by earlier in-flight ops win over store reads
         self.extent_cache.overlay(oid, e.off, buf)
         for w in op.txn.ops[oid].writes:
@@ -770,6 +831,7 @@ class ECBackend:
                 if self.perf:
                     self.perf.inc("ec_drain_submits")
                     self.perf.set("ec_inflight_depth", len(self._inflight))
+                self._arm_auto_flush()
         self._drain_pipeline()
 
     # -- submit half: assemble + launch, NO host sync -----------------------
@@ -843,6 +905,10 @@ class ECBackend:
         prof = device_profiler()
         codec = _codec_label(self.ec_impl)
         queue = self._launch_queue
+        # direct launches record the ops' trace ids here; queue
+        # submissions carry them to the queue's super-batch record
+        traces = tuple(op.top.trace.trace_id for op in ready
+                       if op.top.is_tracked) if prof.enabled else ()
         try:
             if fused_idx:
                 drain.fused_pos = {wi: p for p, wi in enumerate(fused_idx)}
@@ -851,13 +917,15 @@ class ECBackend:
                     # the queue coalesces these runs with other PGs';
                     # the kernel path is known at completion
                     drain.fused_handle = queue.submit_extents(
-                        self.ec_impl, fused_runs, owner=id(self))
+                        self.ec_impl, fused_runs, owner=id(self),
+                        traces=traces)
                     if self.perf:
                         self.perf.inc("ec_host_queue_drains")
                 else:
                     rec = prof.begin(
                         "fused_encode", codec=codec, runs=len(fused_runs),
-                        nbytes=sum(r.size for r in fused_runs))
+                        nbytes=sum(r.size for r in fused_runs),
+                        traces=traces)
                     drain.fused_handle = \
                         self.ec_impl.encode_extents_with_crc_submit(
                             fused_runs)
@@ -881,7 +949,7 @@ class ECBackend:
                 sub_chunked = self.ec_impl.get_sub_chunk_count() != 1
                 if self.mesh_codec is not None and not sub_chunked:
                     rec = prof.begin("mesh_encode", codec=codec,
-                                     nbytes=int(big.size))
+                                     nbytes=int(big.size), traces=traces)
                     try:
                         drain.plain_handle = (
                             "mesh", self.mesh_codec.encode_flat_submit(big))
@@ -898,12 +966,12 @@ class ECBackend:
                         self.perf.inc("ec_mesh_drains")
                 elif queue is not None and not sub_chunked:
                     drain.plain_handle = ("queue", queue.submit_chunks(
-                        self.ec_impl, big, owner=id(self)))
+                        self.ec_impl, big, owner=id(self), traces=traces))
                     if self.perf and not fused_idx:
                         self.perf.inc("ec_host_queue_drains")
                 elif hasattr(self.ec_impl, "encode_chunks_submit"):
                     rec = prof.begin("plain_encode", codec=codec,
-                                     nbytes=int(big.size))
+                                     nbytes=int(big.size), traces=traces)
                     h = self.ec_impl.encode_chunks_submit(big)
                     drain.plain_handle = ("plugin", h)
                     prof.submitted(rec, f"c:{h[0]}:w{big.shape[1]}",
@@ -913,7 +981,7 @@ class ECBackend:
                     # host-synchronous plugins: the whole encode is the
                     # submit; nothing runs on a device
                     rec = prof.begin("plain_encode", codec=codec,
-                                     nbytes=int(big.size))
+                                     nbytes=int(big.size), traces=traces)
                     drain.plain_handle = ("np", np.concatenate(
                         [np.asarray(self.ec_impl.encode_chunks(r))
                          for r in (plain_runs if sub_chunked else [big])],
@@ -936,6 +1004,13 @@ class ECBackend:
                     del self._sim_refs[oid]
                     self._sim_chunk.pop(oid, None)
             raise
+        # submit half done: the device work is in flight and no host
+        # sync has happened; only ops that contributed encode extents
+        # get the event
+        worked = {id(op) for op, _, _, _ in work}
+        for op in ready:
+            if id(op) in worked:
+                op.top.mark_event("ec_encode_launch")
         drain.work = [(op, oid, e, run)
                       for (op, oid, e, _), run in zip(work, runs)]
         self.batched_launches += 1 + (1 if fused_idx and plain_idx else 0)
@@ -980,6 +1055,35 @@ class ECBackend:
             if self._sim_refs[oid] <= 0:
                 del self._sim_refs[oid]
                 self._sim_chunk.pop(oid, None)
+
+    def _stitch_launches(self, drain: _Drain, prof) -> None:
+        """Trace stitching (ops/profiler.py): the launch ids that served
+        this drain land as events on every contributing op's timeline,
+        and a first build that stalled past the threshold lands first,
+        so slow-op blame (largest gap ends at the event) names the
+        bucket that built instead of a bare "ec_encode_materialize"."""
+        worked = {id(op) for op, _, _, _ in drain.work}
+        stitches = []
+        for src in (drain.fused_handle, drain.plain_handle[1]
+                    if drain.plain_handle is not None else None):
+            if getattr(src, "is_launch_ticket", False) and \
+                    src.launch_id is not None:
+                stitches.append((src.launch_id, src.bucket, src.compiled,
+                                 src.compile_s, src.cache_hit))
+        for rec in (drain.prof_fused, drain.prof_plain):
+            if rec is not None:
+                stitches.append((rec.launch_id, rec.bucket, rec.compiled,
+                                 rec.compile_s, rec.cache_hit))
+        stall_s = prof.stall_s
+        for op in drain.ops:
+            if id(op) in worked:
+                for lid, bucket, compiled, comp_s, c_hit in stitches:
+                    # a cached library load is a fast first launch, not
+                    # a stall: it never takes the build blame
+                    if compiled and not c_hit and comp_s >= stall_s:
+                        op.top.mark_event(f"first_compile({bucket})")
+                    op.top.mark_event(f"launch({lid})")
+                op.top.mark_event("ec_encode_materialize")
 
     def _complete_drain(self, drain: _Drain) -> None:
         t0 = time.perf_counter()
@@ -1039,6 +1143,7 @@ class ECBackend:
                     self._abort_op(op, e)
                 return
             device_dt = time.perf_counter() - t0
+            self._stitch_launches(drain, prof)
             encoded_by_op: dict[int, dict] = {id(op): {}
                                               for op in drain.ops}
             crcs_by_op: dict[int, dict] = {id(op): {} for op in drain.ops}
@@ -1170,8 +1275,18 @@ class ECBackend:
         op.state = "committing"
         op.pending_commits = self.n
         self.waiting_commit.append(op)
+        top = op.top
+        tracked = top.is_tracked
+        # one child span for the whole shard fan-out (the holder's
+        # sub-op description carries the shard); per-shard spans would
+        # cost n uuid draws per op on the hot path
+        wire_trace = top.trace.child().to_wire() if tracked else None
+        if tracked:
+            top.mark_event("sub_write_sent")
 
         def on_commit(shard: int) -> None:
+            if tracked:
+                top.mark_event(f"sub_write_ack({shard})")
             with self.lock:
                 op.pending_commits -= 1
                 if op.pending_commits == 0:
@@ -1183,7 +1298,9 @@ class ECBackend:
                 self.shards.sub_write(s, txns[s], on_commit,
                                       log_entries=entries,
                                       at_version=op.version,
-                                      rollforward_to=rf)
+                                      rollforward_to=rf,
+                                      trace=wire_trace,
+                                      top=top if tracked else None)
             except Exception as e:  # noqa: BLE001 — a failed sub-write
                 # must not wedge the in-order commit queue: count the
                 # shard as resolved (failed) and carry the error to the ack
@@ -1199,6 +1316,8 @@ class ECBackend:
                 self.waiting_commit[0].pending_commits == 0:
             op = self.waiting_commit.pop(0)
             op.state = "failed" if op.error is not None else "done"
+            op.top.mark_event("failed" if op.error is not None
+                              else "commit")
             self.log.roll_forward_to(op.version)
             for oid, off, length in op.pinned:
                 self.extent_cache.release(oid, off, length)

@@ -146,9 +146,10 @@ class _Sub:
     run).  `extra` carries kind-specific launch arguments (the decode
     erasure list)."""
     __slots__ = ("ticket", "plugin", "runs", "n_runs", "width",
-                 "nbytes", "t_submit", "owner", "extra")
+                 "nbytes", "t_submit", "owner", "extra", "traces")
 
-    def __init__(self, ticket, plugin, runs, owner, extra=None):
+    def __init__(self, ticket, plugin, runs, owner, extra=None,
+                 traces=()):
         self.ticket = ticket
         self.plugin = plugin
         self.runs = runs
@@ -158,6 +159,10 @@ class _Sub:
         self.t_submit = time.perf_counter()
         self.owner = owner
         self.extra = extra
+        # trace ids of the ops whose bytes ride this submission: the
+        # flight recorder's LaunchRecord carries them, so a slow op's
+        # blame names its launch and the launch names its ops
+        self.traces = traces
 
 
 class _Batch:
@@ -202,6 +207,14 @@ class LaunchTicket:
         self._done = False
         self.path: str | None = None
         self.cancelled = False
+        # flight-recorder stitching (ops/profiler.py): filled at launch
+        # so the owning backend can put the launch id (and a
+        # first-compile blame event) on its ops' timelines
+        self.launch_id: int | None = None
+        self.bucket: str | None = None
+        self.compiled = False
+        self.compile_s = 0.0
+        self.cache_hit = False
 
     @property
     def launched(self) -> bool:
@@ -336,25 +349,27 @@ class ECLaunchQueue:
     # -- submission ----------------------------------------------------------
 
     def submit_extents(self, plugin, runs: list[np.ndarray],
-                       owner=None) -> LaunchTicket:
+                       owner=None, traces=()) -> LaunchTicket:
         """Queue a drain's fused append runs (each (k, Wi) uint8) for a
         coalesced `encode_extents_with_crc_submit` launch; `result()`
         yields the per-run (parity, l, tail, body) tuples in this
-        submission's run order."""
+        submission's run order.  traces: the contributing ops' trace
+        ids (flight-recorder stitching)."""
         return self._submit("x", plugin, [
             np.ascontiguousarray(r, dtype=np.uint8) for r in runs],
-            owner)
+            owner, traces=traces)
 
     def submit_chunks(self, plugin, chunks: np.ndarray,
-                      owner=None) -> LaunchTicket:
+                      owner=None, traces=()) -> LaunchTicket:
         """Queue a drain's concatenated plain (k, W) run for a coalesced
         parity-only launch; `result()` yields this submission's (m, W)
         parity columns."""
         return self._submit("c", plugin, [
-            np.ascontiguousarray(chunks, dtype=np.uint8)], owner)
+            np.ascontiguousarray(chunks, dtype=np.uint8)], owner,
+            traces=traces)
 
     def submit_decode(self, plugin, dense: np.ndarray, erasures,
-                      owner=None) -> LaunchTicket:
+                      owner=None, traces=()) -> LaunchTicket:
         """Queue one recovery/reconstruct decode: `dense` is the
         (k+m, W) array with zeros in the erased rows.  Submissions
         sharing (codec, erasure pattern) coalesce into one
@@ -364,10 +379,10 @@ class ECLaunchQueue:
         return self._submit(
             "d", plugin,
             [np.ascontiguousarray(dense, dtype=np.uint8)], owner,
-            key_suffix=(erasures,), extra=erasures)
+            key_suffix=(erasures,), extra=erasures, traces=traces)
 
     def submit_clay_repair(self, plan, rows: np.ndarray,
-                           owner=None) -> LaunchTicket:
+                           owner=None, traces=()) -> LaunchTicket:
         """Queue one CLAY repair-plan apply: `rows` are the stacked
         helper repair-plane symbols (d*P, W) of one object (or a
         backend's own concatenation of several).  Submissions sharing a
@@ -376,10 +391,11 @@ class ECLaunchQueue:
         submission's (sub_chunks, W) rebuilt columns."""
         return self._submit(
             "r", plan, [np.ascontiguousarray(rows, dtype=np.uint8)],
-            owner)
+            owner, traces=traces)
 
     def _submit(self, kind: str, plugin, runs, owner,
-                key_suffix: tuple = (), extra=None) -> LaunchTicket:
+                key_suffix: tuple = (), extra=None,
+                traces=()) -> LaunchTicket:
         dev = getattr(plugin, "device", None)
         if dev is not None and torch.device(dev) != self.device:
             raise ValueError(f"{_codec_label(plugin)} runs on {dev}, the "
@@ -389,7 +405,8 @@ class ECLaunchQueue:
         else:
             key = (kind,) + codec_signature(plugin) + key_suffix
         ticket = LaunchTicket(self, kind, key)
-        sub = _Sub(ticket, plugin, runs, owner, extra=extra)
+        sub = _Sub(ticket, plugin, runs, owner, extra=extra,
+                   traces=traces)
         batches: list[_Batch] = []
         with self._lock:
             self._pending.setdefault(key, []).append(sub)
@@ -588,6 +605,7 @@ class ECLaunchQueue:
             runs=sum(s.n_runs for s in subs),
             nbytes=sum(s.nbytes for s in subs),
             pg_mix=len({s.owner for s in subs}),
+            traces=[t for s in subs for t in s.traces],
             queue_wait_s=batch.queue_wait)
         try:
             with self._on_device():
@@ -648,6 +666,14 @@ class ECLaunchQueue:
                            path=batch.path if kind == "x" else handle[0],
                            jit=kernel)
             batch.prof_rec = rec
+            if rec is not None:
+                for s in subs:
+                    t = s.ticket
+                    t.launch_id = rec.launch_id
+                    t.bucket = rec.bucket
+                    t.compiled = rec.compiled
+                    t.compile_s = rec.compile_s
+                    t.cache_hit = rec.cache_hit
         finally:
             for s in subs:
                 s.runs = None   # the launch holds the staged arrays now

@@ -155,16 +155,43 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    torch.cuda.nccl.all_gather of a one-member list (the binding; a
    multi-card gather needs more cards).  GB/s of each, launches and the
    mesh's gather kind are printed.
-13. A/B (phase F): the native CPU library must have built; then
+13. The cluster (phase L), in a fresh process (`chip_smoke.py
+   --cluster-child CACHE ASOK`) whose kernel library cache (a directory
+   of the run's own, holding a copy of the library the parent built) is
+   set before the library's first load: tools/vstart.Cluster with a mon
+   and 13 OSD daemons on the loopback messenger, MemStore, auth none,
+   every codec and the host launch queue on the card, the boot prewarm
+   on.  Pool A is torch k=8 m=3 cauchy, stripe unit 4096 B, 16 PGs
+   (ISA-L's canonical profile, its point pinned to K3); pool B CLAY
+   k=8 m=4 d=11, 8 PGs (BASELINE.json).  Through RadosClient, 16 ops in
+   flight: 64 x 4 MiB written to pool A, 16 partial 64 KiB overwrites
+   (RMW), 16 x 4 MiB to pool B, every object read back; OSD 5 killed
+   and marked down and every object read degraded; OSD 5 marked out
+   (`osd out`) and the cluster waited to active+clean (recovery onto
+   the remapped PGs: K1 decodes, K4 CLAY repairs); every object read
+   again; `scrub` with deep through every OSD's admin socket (K5).
+   Every read must equal what was written; every shard on every live
+   OSD its HashInfo crc (or its chunk crc after an overwrite); the
+   scrub 0 errors with device bytes > 0; `prewarm status` and `compile
+   ledger` read through the admin socket without an error and the
+   cache enabled and loaded, not built; every pool-A PG's primary
+   ec_drain_submits > 0.  Launch counts are zeroed after boot and read
+   per step and at the end: K1, K4, K5 and a fused entry (K3 or K2)
+   must each have launched, and only kernels the rows held.  Client
+   GB/s per step, recovery's wall and rebuilt bytes, deep-scrub GB/s,
+   the launches by kernel and by kind, and the launch queue's status are
+   printed with the card's name and power limit.
+14. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
-its own phase, in the recovery storm and in phase K), the main paths',
-the benchmark's, the w32 sweep's, the CLAY repair's, the recovery
-storm's, the deep scrub's, the boot's, the mesh's and the A/B's lines,
+its own phase, in the recovery storm, in phase K and in phase L), the
+main paths', the benchmark's, the w32 sweep's, the CLAY repair's, the
+recovery storm's, the deep scrub's, the boot's, the mesh's, the
+cluster's and the A/B's lines,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
@@ -2138,6 +2165,352 @@ def phase_benchmark():
     return counts[0], counts[1], out
 
 
+# Phase L: the cluster on the card.  A mon and 13 OSD daemons in one
+# process (tools/vstart.Cluster) over the loopback messenger, MemStore,
+# auth none, every daemon's codecs and launch queue on the card, the boot
+# prewarm on and the kernel library cache in a directory of the run's own.
+# Pool A is ISA-L's canonical profile on the torch plugin (BASELINE.json's
+# write path), pool B BASELINE.json's CLAY profile; 13 OSDs let both remap
+# around one lost OSD (pool B spans 12).  Objects are RBD's 4 MiB, written
+# and read 16 at a time (rados bench's default concurrency).
+N_CLUSTER_OSDS = 13
+CLUSTER_POOLS = (
+    ("poola", {"plugin": "torch", "k": str(K), "m": str(M),
+               "technique": "cauchy", "stripe_unit": str(STRIPE_UNIT)}, 16),
+    ("poolb", {"plugin": "clay", "k": "8", "m": "4", "d": "11"}, 8))
+N_CLUSTER_OBJECTS = {"poola": 64, "poolb": 16}
+CLUSTER_OBJECT = BIG
+N_CLUSTER_RMW = 16
+CLUSTER_RMW_LEN = SMALL
+CLUSTER_DEPTH = 16
+CLUSTER_VICTIM = 5
+CLUSTER_PREWARM = True
+CLUSTER_CHILD_TIMEOUT_S = 900
+CLUSTER_CLEAN_TIMEOUT_S = 600.0
+CLUSTER_ASOK_TIMEOUT_S = 600.0
+
+
+def _windowed(submits, depth: int) -> None:
+    """Run the aio submits with at most `depth` in flight."""
+    inflight = []
+    for submit in submits:
+        if len(inflight) >= depth:
+            inflight.pop(0).result(timeout=300)
+        inflight.append(submit())
+    for fut in inflight:
+        fut.result(timeout=300)
+
+
+def cluster_shard_crcs(osds) -> dict:
+    """Every shard on every live OSD's store against its integrity
+    xattr: a valid HashInfo's cumulative crc, or the chunk_crc of an
+    object in overwrite mode, must equal the host crc32c of the shard's
+    bytes.  Returns the counts checked."""
+    from ceph_tpu_torch.common import crc32c as host_crc
+    from ceph_tpu_torch.osd.ec_util import (CHUNK_CRC_KEY, HINFO_KEY,
+                                            HashInfo)
+    out = {"hinfo": 0, "chunk_crc": 0}
+    for osd in osds:
+        if osd is None:
+            continue
+        store = osd.store
+        for cid in store.list_collections():
+            for oid in store.list_objects(cid):
+                attrs = store.getattrs(cid, oid)
+                if HINFO_KEY not in attrs:
+                    continue
+                data = bytes(store.read(cid, oid))
+                got = host_crc.crc32c(data, 0xFFFFFFFF)
+                h = HashInfo.decode(attrs[HINFO_KEY])
+                if not h.invalidated:
+                    want = h.cumulative_shard_hashes[cid.shard]
+                    kind = "hinfo"
+                    if len(data) != h.total_chunk_size:
+                        raise AssertionError(
+                            f"osd.{osd.osd_id} {cid} {oid}: {len(data)} "
+                            f"bytes, HashInfo says {h.total_chunk_size}")
+                elif CHUNK_CRC_KEY in attrs:
+                    want = int.from_bytes(attrs[CHUNK_CRC_KEY], "little")
+                    kind = "chunk_crc"
+                else:
+                    continue
+                if got != want:
+                    raise AssertionError(
+                        f"osd.{osd.osd_id} {cid} {oid}: crc32c {got:#x}, "
+                        f"its {kind} says {want:#x}")
+                out[kind] += 1
+    return out
+
+
+def cluster_run(device: str, cache_dir: str, asok_dir: str) -> dict:
+    """Phase L's traffic on one cluster: write, RMW and read pool A,
+    write and read pool B, lose an OSD (down: degraded reads of both
+    pools; out: recovery to active+clean), then a deep scrub through
+    every OSD's admin socket.  Every read must equal what was written,
+    every shard its HashInfo or chunk crc, the scrub find nothing.
+    Launch counts are zeroed once after boot and read at each step's
+    end (deltas) and after the last."""
+    from ceph_tpu_torch.common.admin_socket import admin_command
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops.profiler import device_profiler
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.tools.vstart import Cluster
+    rng = np.random.default_rng(SEED)
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def asok(osd_id, cmd, timeout=30.0):
+        return admin_command(f"{asok_dir}/osd.{osd_id}.asok", cmd,
+                             timeout=timeout)
+
+    report = {"osds": N_CLUSTER_OSDS, "victim": CLUSTER_VICTIM,
+              "steps": {}, "launches": {}}
+    t0 = time.perf_counter()
+    c = Cluster(n_osds=N_CLUSTER_OSDS, device=device,
+                prewarm=CLUSTER_PREWARM, compile_cache_dir=cache_dir,
+                asok_dir=asok_dir)
+    with c:
+        report["boot_s"] = time.perf_counter() - t0
+        # the boot statuses through the admin socket: the reference's
+        # daemon keeps booting when the cache or the prewarm fails, so
+        # the run must read them
+        pw = asok(0, {"prefix": "prewarm status"})
+        ledger = asok(0, {"prefix": "compile ledger"})
+        cache = pw["persistent_cache"]
+        if "error" in (pw.get("boot") or {}) or "error" in cache or \
+                not cache["enabled"] or "error" in ledger:
+            raise AssertionError(f"cluster boot: prewarm {pw.get('boot')}, "
+                                 f"cache {cache}, ledger error "
+                                 f"{ledger.get('error')}")
+        if CLUSTER_PREWARM and not (pw["boot"] or {}).get("planned"):
+            raise AssertionError(f"cluster boot prewarm ran nothing: {pw}")
+        report["prewarm"] = {k: v for k, v in (pw["boot"] or {}).items()
+                             if k != "buckets"}
+        report["compile_cache"] = cache
+        cl = c.client()
+        ios, pool_ids = {}, {}
+        for name, profile, pg_num in CLUSTER_POOLS:
+            cl.set_ec_profile(name, profile)
+            cl.create_pool(name, "erasure", erasure_code_profile=name,
+                           pg_num=pg_num)
+            ios[name] = cl.open_ioctx(name)
+            pool_ids[name] = ios[name].pool_id
+        expect = {(pool, f"{pool}.{i}"): rng.integers(
+            0, 256, CLUSTER_OBJECT, dtype=np.uint8)
+            for pool, n in N_CLUSTER_OBJECTS.items() for i in range(n)}
+        prof = device_profiler()
+        sync()
+        bs.reset_launch_counts()
+        narrow0 = bs._encode_crc_launch.narrow_launches
+        kinds0 = dict(prof.profile(last=0)["by_kind"])
+        last = {"counts": bs.launch_counts()}
+
+        def step(label, fn, nbytes):
+            t = time.perf_counter()
+            fn()
+            sync()
+            wall = time.perf_counter() - t
+            now = bs.launch_counts()
+            report["launches"][label] = {
+                k: now[k] - last["counts"][k] for k in now}
+            last["counts"] = now
+            report["steps"][label] = {"wall_s": wall, "bytes": nbytes,
+                                      "GBps": nbytes / wall / 1e9}
+
+        def write(pool):
+            _windowed([lambda key=key: ios[key[0]].aio_write_full(
+                key[1], expect[key].tobytes())
+                for key in expect if key[0] == pool], CLUSTER_DEPTH)
+
+        def read_all(what):
+            futs = {}
+            keys = list(expect)
+
+            def submit(key):
+                fut = ios[key[0]].aio_read(key[1], CLUSTER_OBJECT)
+                futs[key] = fut
+                return fut
+            _windowed([lambda key=key: submit(key) for key in keys],
+                      CLUSTER_DEPTH)
+            for key in keys:
+                got = futs[key].result(timeout=300)
+                if got != expect[key].tobytes():
+                    raise AssertionError(f"{what}: {key[1]} read back "
+                                         f"wrong")
+
+        pool_bytes = {p: n * CLUSTER_OBJECT
+                      for p, n in N_CLUSTER_OBJECTS.items()}
+        step("write_a", lambda: write("poola"), pool_bytes["poola"])
+        # every pool-A PG that took objects: its primary's backend
+        # drained them (ec_drain_submits, the ec.<pgid> perf set)
+        osdmap = c.mon.osdmap
+        from ceph_tpu_torch.osd.types import pg_t
+        drains = {}
+        for pool, name in expect:
+            if pool != "poola":
+                continue
+            seed = osdmap.object_to_pg(pool_ids[pool], name).seed
+            pgid = pg_t(pool_ids[pool], seed)
+            primary = osdmap.pg_to_up_acting_osds(pgid)[3]
+            perf = c.osds[primary].cct.perf.dump().get(f"ec.{pgid}", {})
+            drains[str(pgid)] = int(perf.get("ec_drain_submits", 0))
+        if not drains or min(drains.values()) <= 0:
+            raise AssertionError(f"pool A primaries without drains: "
+                                 f"{drains}")
+        report["pool_a_drain_submits"] = drains
+
+        rmw = []
+        names_a = [name for pool, name in expect if pool == "poola"]
+        for i in rng.choice(len(names_a), N_CLUSTER_RMW, replace=False):
+            off = int(rng.integers(0, CLUSTER_OBJECT - CLUSTER_RMW_LEN))
+            patch = rng.integers(0, 256, CLUSTER_RMW_LEN, dtype=np.uint8)
+            expect[("poola", names_a[i])][off:off + CLUSTER_RMW_LEN] = patch
+            rmw.append((names_a[i], off, patch.tobytes()))
+
+        def overwrite():
+            # a partial write on the client's aio pool, as aio_write_full
+            io = ios["poola"]
+            _windowed([lambda r=r: io.client._pool.submit(
+                io.write, r[0], r[2], r[1]) for r in rmw], CLUSTER_DEPTH)
+        step("rmw_a", overwrite, N_CLUSTER_RMW * CLUSTER_RMW_LEN)
+        step("write_b", lambda: write("poolb"), pool_bytes["poolb"])
+        all_bytes = sum(pool_bytes.values())
+        step("read", lambda: read_all("read"), all_bytes)
+
+        # lose one OSD: down (degraded reads), then out (recovery)
+        c.remove_osd(CLUSTER_VICTIM)
+        c.mark_osd_down(CLUSTER_VICTIM)
+        epoch = c.mon.osdmap.epoch
+        deadline = time.time() + 30
+        while any(o is not None and o.osdmap.epoch < epoch for o in c.osds):
+            if time.time() > deadline:
+                raise AssertionError("the down map did not reach the OSDs")
+            time.sleep(0.05)
+        step("degraded_read", lambda: read_all("degraded read"), all_bytes)
+
+        def pushed():
+            return sum(int(o.cct.perf.dump().get(f"osd.{o.osd_id}", {})
+                           .get("recovery_pushed_bytes", 0))
+                       for o in c.osds if o is not None)
+        pushed0 = pushed()
+
+        def recover():
+            r, out = cl.mon_command({"prefix": "osd out",
+                                     "id": CLUSTER_VICTIM})
+            if r != 0:
+                raise AssertionError(f"osd out: {r} {out}")
+            deadline = time.time() + CLUSTER_CLEAN_TIMEOUT_S
+            while not c._active_clean_once()[0]:
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"no active+clean: {c._active_clean_once()[1]}")
+                time.sleep(0.05)
+        step("recovery", recover, 0)
+        c.wait_active_clean(timeout=CLUSTER_CLEAN_TIMEOUT_S)
+        rebuilt = pushed() - pushed0
+        rec = report["steps"]["recovery"]
+        rec["bytes"] = rebuilt
+        rec["GBps"] = rebuilt / rec["wall_s"] / 1e9
+        if rebuilt <= 0:
+            raise AssertionError("recovery pushed no shard bytes")
+        step("read_after_recovery", lambda: read_all("read after recovery"),
+             all_bytes)
+
+        scrub = {"pgs": 0, "objects": 0, "errors": [], "device_bytes": 0,
+                 "host_bytes": 0}
+
+        def deep_scrub():
+            for osd in c.osds:
+                if osd is None:
+                    continue
+                res = asok(osd.osd_id, {"prefix": "scrub", "deep": True},
+                           timeout=CLUSTER_ASOK_TIMEOUT_S)
+                if "error" in res:
+                    raise AssertionError(f"osd.{osd.osd_id} scrub: {res}")
+                for pg, r in res.items():
+                    scrub["pgs"] += 1
+                    scrub["objects"] += r["objects"]
+                    scrub["errors"] += r["errors"]
+                    scrub["device_bytes"] += r.get("device_bytes", 0)
+                    scrub["host_bytes"] += r.get("host_bytes", 0)
+        step("deep_scrub", deep_scrub, 0)
+        st = report["steps"]["deep_scrub"]
+        st["bytes"] = scrub["device_bytes"] + scrub["host_bytes"]
+        st["GBps"] = st["bytes"] / st["wall_s"] / 1e9
+        report["scrub"] = scrub
+        if scrub["errors"] or scrub["objects"] != len(expect):
+            raise AssertionError(f"deep scrub: {scrub}")
+        if on_card and scrub["device_bytes"] <= 0:
+            raise AssertionError(f"deep scrub ran no device bytes: {scrub}")
+        report["launch_totals"] = bs.launch_counts()
+        report["narrow_launches"] = \
+            bs._encode_crc_launch.narrow_launches - narrow0
+        kinds = prof.profile(last=0)["by_kind"]
+        report["profiler_by_kind"] = {
+            k: v - kinds0.get(k, 0) for k, v in kinds.items()}
+        queue = ECLaunchQueue.host_get()
+        report["launch_queue"] = queue.status() if queue else None
+        report["shard_crcs"] = cluster_shard_crcs(c.osds)
+        if not report["shard_crcs"]["hinfo"]:
+            raise AssertionError("no HashInfo crc was checked")
+    return report
+
+
+def cluster_child(cache_dir: str, asok_dir: str) -> int:
+    """Phase L in its own process: the kernel library cache must be
+    pointed at `cache_dir` before the library's first load, which the
+    parent has long made.  Prints one JSON line."""
+    from ceph_tpu_torch.ops import compile_cache
+    report = cluster_run("cuda", cache_dir, asok_dir)
+    report["compile_cache_after"] = compile_cache.status()
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def phase_cluster(tmp) -> tuple[dict, dict]:
+    """Phase L: the cluster in a fresh process whose kernel library
+    cache holds the library the parent built (a restarted daemon's
+    load).  Returns (the phase's launch counts, the report)."""
+    from ceph_tpu_torch.ops import _build
+    cache_dir = tmp / "cluster_cache"
+    asok_dir = tmp / "asok"
+    cache_dir.mkdir()
+    asok_dir.mkdir()
+    shutil.copy2(_build.library_path(), cache_dir)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--cluster-child",
+         str(cache_dir), str(asok_dir)],
+        capture_output=True, text=True, timeout=CLUSTER_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"cluster exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    lib = res["compile_cache_after"]["kernel_library"]
+    if lib["builds_in_process"] or not res["compile_cache_after"]["enabled"]:
+        raise AssertionError(f"the cluster did not load the cached "
+                             f"library: {res['compile_cache_after']}")
+    total = res["launch_totals"]
+    missing = [k for k in ("gf_bitmatmul", "gf_bitmatmul_stream",
+                           "crc32c_rows_l") if total[k] <= 0]
+    fused = total["fused_hier_acc_call"] + total["fused_hier_call"] + \
+        total["gf_encode_with_crc_w32"]
+    if missing or fused <= 0:
+        raise AssertionError(f"phase L missed kernels {missing} (fused "
+                             f"{fused}): {total}")
+    res["card"] = nvidia_smi_line()
+    steps = res["steps"]
+    print(f"# cluster ({res['card']}): boot {res['boot_s']:.2f} s; "
+          + "; ".join(f"{k} {v['GBps']:.4f} GB/s ({v['wall_s']:.3f} s)"
+                      for k, v in steps.items()), flush=True)
+    print(f"# cluster launches {total}; by kind "
+          f"{res['profiler_by_kind']}; queue {res['launch_queue']}",
+          flush=True)
+    return total, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2194,11 +2567,19 @@ def main() -> int:
                   dict(autotune.default_point(), combine="kernel"))
         boot_report = phase_boot()
         mesh_counts, mesh = phase_mesh(dev, rng)
+        pin_point(tmp / "pinned_cluster.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        cluster_counts, cluster = phase_cluster(tmp)
         ab = phase_ab()
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
+    held = {row["counter"] for row in rows}
+    unheld = [k for k, n in cluster_counts.items() if n and k not in held]
+    if unheld:
+        raise AssertionError(f"phase L launched {unheld}, which no kernel "
+                             f"row held against its plain version")
     for row in rows:
         phase = row.pop("phase")
         counter = row.pop("counter")
@@ -2207,11 +2588,13 @@ def main() -> int:
             row["launches"] = narrow_launches
             row["recovery_storm_launches"] = None
             row["mesh_launches"] = None
+            row["cluster_launches"] = cluster["narrow_launches"]
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
             c[counter] for c in storm_counts.values())
         row["mesh_launches"] = sum(c[counter] for c in mesh_counts.values())
+        row["cluster_launches"] = cluster_counts[counter]
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -2237,6 +2620,7 @@ def main() -> int:
     print(json.dumps({"boot": boot_report}), flush=True)
     print(json.dumps({"mesh": mesh, "mesh_launch_counts": mesh_counts}),
           flush=True)
+    print(json.dumps({"cluster": cluster}), flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2247,4 +2631,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--boot-child":
         sys.exit(boot_child(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--cluster-child":
+        sys.exit(cluster_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

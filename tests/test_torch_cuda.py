@@ -7,6 +7,8 @@ or ceph_tpu, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -800,3 +802,75 @@ def test_prewarm_run_once_on_card(cuda_device):
     finally:
         prewarm.reset_for_tests()
         compile_cache.reset_for_tests()
+
+
+def test_cluster_on_card(cuda_device):
+    """A 6-OSD cluster whose codecs and launch queue run on the card, a
+    torch k=4 m=2 pool: writes (the fused kernels), a partial overwrite
+    (K1's encode), reads, a deep scrub through the daemons (K5), then
+    degraded reads with an OSD down (K1's decode); every shard's
+    HashInfo crc holds."""
+    from ceph_tpu_torch.common import crc32c as host_crc
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops.profiler import DeviceProfiler
+    from ceph_tpu_torch.osd.ec_util import HINFO_KEY, HashInfo
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.tools.vstart import Cluster
+    ECLaunchQueue.reset_host()
+    DeviceProfiler.reset_host()
+    rng = np.random.default_rng(64)
+    try:
+        with Cluster(n_osds=6, device=str(cuda_device)) as c:
+            cl = c.client()
+            cl.set_ec_profile("cp", {"plugin": "torch", "k": "4", "m": "2",
+                                     "stripe_unit": "4096"})
+            cl.create_pool("cpool", "erasure", erasure_code_profile="cp",
+                           pg_num=8)
+            io = cl.open_ioctx("cpool")
+            objs = {f"c{i}": rng.integers(0, 256, (1 << 20) + 4096 * i,
+                                          dtype=np.uint8)
+                    for i in range(12)}
+            bs.reset_launch_counts()
+            for name, data in objs.items():
+                io.write_full(name, data.tobytes())
+            patch = rng.integers(0, 256, 10000, dtype=np.uint8)
+            objs["c3"][5000:15000] = patch
+            io.write("c3", patch.tobytes(), offset=5000)
+            for name, data in objs.items():
+                assert io.read(name, len(data)) == data.tobytes()
+            errors = device_bytes = 0
+            for osd in c.osds:
+                for res in osd._asok_scrub({"deep": True}).values():
+                    errors += len(res["errors"])
+                    device_bytes += res["device_bytes"]
+            c.kill_osd(0)
+            c.mark_osd_down(0)
+            epoch = c.mon.osdmap.epoch
+            while any(o.osdmap.epoch < epoch for o in c.osds[1:]):
+                time.sleep(0.05)
+            for name, data in objs.items():
+                assert io.read(name, len(data)) == data.tobytes()
+            torch.cuda.synchronize()
+            n = bs.launch_counts()
+            assert errors == 0 and device_bytes > 0
+            assert n["gf_bitmatmul"] > 0 and n["crc32c_rows_l"] > 0
+            assert n["fused_hier_acc_call"] + n["fused_hier_call"] + \
+                n["gf_encode_with_crc_w32"] > 0
+            checked = 0
+            for osd in c.osds[1:]:
+                for cid in osd.store.list_collections():
+                    for oid in osd.store.list_objects(cid):
+                        attrs = osd.store.getattrs(cid, oid)
+                        if HINFO_KEY not in attrs:
+                            continue
+                        h = HashInfo.decode(attrs[HINFO_KEY])
+                        if h.invalidated:
+                            continue
+                        data = bytes(osd.store.read(cid, oid))
+                        assert host_crc.crc32c(data, 0xFFFFFFFF) == \
+                            h.cumulative_shard_hashes[cid.shard]
+                        checked += 1
+            assert checked > 0
+    finally:
+        ECLaunchQueue.reset_host()
+        DeviceProfiler.reset_host()

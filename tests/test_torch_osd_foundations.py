@@ -214,8 +214,14 @@ def test_replicas_hold_the_same_bytes():
 
 def test_store_create_waits_for_the_persistent_stores():
     """create_store names FileStore and BlueStore, which the port has
-    not yet: it is not exported, and the store package keeps the
+    not yet: it builds a MemStore, raises for the persistent kinds
+    (naming them as not ported), and the store package keeps the
     reference's other names."""
-    assert not hasattr(tstore, "create_store")
+    assert isinstance(tstore.create_store("memstore"), tstore.MemStore)
+    for kind in ("filestore", "bluestore", "bluestore-zlib"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tstore.create_store(kind, "/nonexistent")
+    with pytest.raises(ValueError, match="unknown objectstore"):
+        tstore.create_store("nostore")
     for name in ("ObjectStore", "Transaction", "MemStore"):
         assert getattr(tstore, name) is not None
