@@ -1522,6 +1522,12 @@ class Monitor:
             "recovering_osds": sorted(
                 o for o, r in stats.items()
                 if r.get("degraded_pgs") or r.get("misplaced")),
+            # each reporting OSD's map epoch and whether a recovery pass
+            # is running there: a process cluster's active+clean gate
+            # (tools/proc_cluster.py) waits on these from outside
+            "osd_epochs": {str(o): r.get("epoch") for o, r in stats.items()},
+            "recovery_running": sorted(
+                o for o, r in stats.items() if r.get("recovering")),
             "pools": pools,
         }
 

@@ -3,9 +3,11 @@
 Fills the MonitorDBStore role (reference src/mon/MonitorDBStore.h:37 —
 every Paxos transaction is applied through one KV store so a restarted
 monitor comes back with full state: maps, auth entities, config, pool
-and EC-profile definitions).  With no data dir it is a MemDB, as every
-in-memory cluster runs; ceph_tpu backs a data dir with its LSM engine,
-which is not ported yet, so a data dir raises (store/kv.open_kv).
+and EC-profile definitions).  A data dir is backed by the LSM engine
+(store/kv_lsm.LsmDB, through store/kv.open_kv) that FileStore and
+BlueStore ride, in the same on-disk format as ceph_tpu's, so a restarted
+monitor comes back with its maps, profiles and pools; with no data dir
+it is a MemDB, as every in-memory cluster runs.
 
 Persisted keys:
   paxos:committed    — the committed multi-service value (JSON)

@@ -1793,8 +1793,15 @@ class OSDDaemon:
         holder (down-not-out member) means the PG serves BELOW full
         redundancy even though nothing more is recoverable — track it
         undersized (MPGStats degraded_pgs) with an open degraded
-        window until the map gives the slot a home."""
+        window until the map gives the slot a home.  The holes are read
+        on the CURRENT map: a pass of an older epoch can finish after
+        the newer epoch's pass, and its acting set (with the hole the
+        newer map filled) would leave the PG undersized for good."""
         from ..crush.map import CRUSH_ITEM_NONE
+        try:
+            acting = self.osdmap.pg_to_up_acting_osds(pgid)[1]
+        except Exception:  # noqa: BLE001 - pool gone: keep the pass's
+            pass
         holes = len(acting) < width or any(
             o == CRUSH_ITEM_NONE or not self.osdmap.is_up(o)
             for o in acting)
@@ -2944,6 +2951,10 @@ class OSDDaemon:
         current = {s for s, (info, _) in replies.items()
                    if info.last_epoch_started == max_les}
         auth_head = min(replies[s][0].last_update for s in current)
+        # where each stale shard's history stops (taken now: activating
+        # a local shard below updates its info in place)
+        stale_from = {s: info.last_update for s, (info, _) in
+                      replies.items() if s not in current}
         donor = max(current, key=lambda s: replies[s][0].last_update)
         auth_entries = [e for e in replies[donor][1]
                         if e.version <= auth_head]
@@ -2990,6 +3001,21 @@ class OSDDaemon:
         be.log = newlog
         with state.lock:
             state.version = max(state.version, auth_head.version)
+        # a stale shard sat out writes the authoritative log holds after
+        # its last_update: its copy of each object they touched is old
+        # (an overwrite while its OSD was down leaves it in place, so
+        # a scan for absent shards never finds it).  Drop those copies;
+        # the reconstruction below rebuilds them from the current
+        # shards (reference PeeringState's missing set).
+        for s, last in stale_from.items():
+            txn = Transaction()
+            for oid in dict.fromkeys(e.oid for e in auth_entries
+                                     if e.version > last):
+                if be.shards.stat(s, oid) is not None:
+                    txn.remove(shard_oid(oid, s))
+                    removed.append(oid)
+            if txn.ops:
+                self._push_shard_txn(live[s], spg_t(pgid, s), txn)
         # reconstruct objects whose divergent entries weren't locally
         # rollbackable (authoritative shards never applied them, so
         # decode-from-k yields the pre-divergence object)
@@ -4029,10 +4055,14 @@ class OSDDaemon:
         recorder's launch ledger — aggregates, lat_launch_* percentile
         summaries, and the bounded ring of recent launches (each with
         launch id, jit bucket, runs/bytes/pg-mix, queue-wait, submit
-        and device times, and the contributing ops' trace ids)."""
+        and device times, and the contributing ops' trace ids) — and
+        `kernel_launches`, this process's count of launches by kernel
+        wrapper (ops/bitsliced.launch_counts)."""
+        from ..ops import bitsliced
         out = self._profiler.profile(
             last=int(cmd["last"]) if "last" in cmd else None)
         out["osd"] = self.osd_id
+        out["kernel_launches"] = bitsliced.launch_counts()
         out["host_perf_owner"] = self._profiler_reporter
         return out
 

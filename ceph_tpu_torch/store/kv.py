@@ -7,9 +7,10 @@ metadata (and, in the reference, the entire mon store).  Implementations:
   MemDB — dict-backed (reference MemDB role; tests)
   LogDB — durable WAL + whole-file snapshot (kept for small stores and
           as a comparison point; O(total-keys) compaction)
-  LsmDB — ceph_tpu's real engine (kv_lsm.py, the RocksDBStore role)
-          is not ported yet: `open_kv` with a path raises, and so do
-          the persistent stores that ride it.
+  LsmDB — the real engine (kv_lsm.py): memtable + WAL + block-based
+          SSTables + leveled compaction, the RocksDBStore role.  All
+          durable subsystems (BlueStore-role metadata, FileStore omap,
+          the mon store) ride this one.
 """
 
 from __future__ import annotations
@@ -188,11 +189,27 @@ class LogDB(KeyValueDB):
 
 
 def open_kv(path: str | None, **kw) -> KeyValueDB:
-    """Factory: no path = MemDB.  (Reference analog: KeyValueDB::create
-    picking RocksDBStore, src/kv/KeyValueDB.cc.)  The reference's
-    durable default, the LSM engine, is not ported yet, so a path
-    raises."""
+    """Factory: the durable default is the LSM engine; no path = MemDB.
+    (Reference analog: KeyValueDB::create picking RocksDBStore,
+    src/kv/KeyValueDB.cc.)  A data dir written by the old LogDB format
+    (snapshot.json / wal.log) is migrated in place on first open."""
     if not path:
         return MemDB()
-    from . import NOT_PORTED
-    raise NotImplementedError(f"kv store at {path!r}: {NOT_PORTED}")
+    from .kv_lsm import LsmDB
+    p = Path(path)
+    old_snap, old_wal = p / "snapshot.json", p / "wal.log"
+    if old_snap.exists() or old_wal.exists():
+        old = LogDB(path)
+        items = list(old.iterate())
+        old.close()
+        db = LsmDB(path, **kw)
+        batch = WriteBatch()
+        for k, v in items:
+            batch.set(k, v)
+        if batch.ops:
+            db.submit(batch)
+        db.compact()                 # settle into SSTs before the old
+        old_snap.unlink(missing_ok=True)   # artifacts disappear
+        old_wal.unlink(missing_ok=True)
+        return db
+    return LsmDB(path, **kw)

@@ -18,8 +18,13 @@ The cluster's EC codecs run on `device`: the card ("cuda", the
 default) or the CPU ("cpu", the plain versions of the kernels).  The
 mon validates `torch` profiles there and every OSD builds its PGs'
 codecs and its launch queue there; a CUDA request without a GPU fails
-the command or op that needs the codec.  Only `memstore` is ported:
-the persistent stores raise.
+the command or op that needs the codec.  `--objectstore filestore |
+bluestore | bluestore-<compressor>` puts the mon and every OSD in
+`--data-dir` (a temp dir when omitted), so a revived OSD mounts what
+its store made durable:
+
+    python -m ceph_tpu_torch.tools.vstart --osds 6 --device cpu \
+        --objectstore bluestore --data-dir /tmp/vs
 """
 
 from __future__ import annotations
@@ -202,14 +207,22 @@ class Cluster:
 
     def revive_osd(self, osd_id: int) -> None:
         """Restart a killed OSD on its surviving store (reference
-        qa/tasks/ceph_manager.py revive_osd): FileStore replays its
-        WAL on mount; MemStore data survives in-process.  Cluster and
-        per-OSD conf overrides re-apply to the fresh CephContext —
-        chaos settings (fault injection) survive the restart."""
+        qa/tasks/ceph_manager.py revive_osd): a persistent store is
+        opened afresh from its data dir (create_store), and its mount
+        replays what it made durable (FileStore's journal, BlueStore's
+        deferred writes and kv WAL); MemStore data survives
+        in-process.  Cluster and per-OSD conf overrides re-apply to the
+        fresh CephContext — chaos settings (fault injection) survive
+        the restart."""
         old = self.osds[osd_id]
         asok = (f"{self.asok_dir}/osd.{osd_id}.asok"
                 if self.asok_dir else None)
-        osd = OSDDaemon(osd_id, self.mon_addrs, store=old.store,
+        store = old.store
+        if self.objectstore != "memstore":
+            from ..store import create_store
+            store = create_store(self.objectstore,
+                                 f"{self.data_dir}/osd.{osd_id}")
+        osd = OSDDaemon(osd_id, self.mon_addrs, store=store,
                         heartbeat_interval=self.heartbeat_interval,
                         asok_path=asok, auth=self._daemon_auth(osd_id),
                         secure=self.secure,
@@ -344,10 +357,13 @@ def main(argv=None) -> int:
     ap.add_argument("--osds", type=int, default=6)
     ap.add_argument("--mons", type=int, default=1)
     ap.add_argument("--heartbeat", type=float, default=1.0)
-    ap.add_argument("--objectstore", choices=("memstore",),
-                    default="memstore",
-                    help="only memstore is ported; the persistent "
-                         "stores are not yet")
+    ap.add_argument("--objectstore",
+                    choices=("memstore", "filestore", "bluestore",
+                             "bluestore-zlib"),
+                    default="memstore")
+    ap.add_argument("--data-dir", default=None,
+                    help="store root (filestore/bluestore; a temp dir "
+                         "is created when omitted)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the EC codecs run (default: the card)")
     ap.add_argument("--asok-dir", default=None)
@@ -360,9 +376,14 @@ def main(argv=None) -> int:
     ap.add_argument("--keyring-out", default=None,
                     help="write the client keyring here (cephx)")
     args = ap.parse_args(argv)
+    if args.objectstore != "memstore" and not args.data_dir:
+        import tempfile
+        args.data_dir = tempfile.mkdtemp(prefix="vstart_")
+        print(f"data dir: {args.data_dir}", flush=True)
     cluster = Cluster(args.osds, heartbeat_interval=args.heartbeat,
                       asok_dir=args.asok_dir,
-                      objectstore=args.objectstore, n_mons=args.mons,
+                      objectstore=args.objectstore,
+                      data_dir=args.data_dir, n_mons=args.mons,
                       auth=args.auth, secure=args.secure,
                       mesh_devices=args.mesh_devices,
                       device=args.device).start()

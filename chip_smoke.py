@@ -181,17 +181,50 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    GB/s per step, recovery's wall and rebuilt bytes, deep-scrub GB/s,
    the launches by kernel and by kind, and the launch queue's status are
    printed with the card's name and power limit.
-14. A/B (phase F): the native CPU library must have built; then
+14. The process cluster (phase M): tools/proc_cluster.ProcCluster, a
+   mon with a data dir and 12 OSD daemons, each its own process
+   (tools/daemon_main --device cuda), every OSD on BlueStore (Ceph
+   Octopus's default objectstore) in a data dir of the run's own, its
+   codecs and host launch queue on the card, the boot prewarm on, the
+   kernel library loaded from a cache directory holding the library
+   the parent built (each daemon's `compile ledger` must show 0 builds
+   and its prewarm no error), the K3 point inherited through the
+   pinned autotune cache; heartbeats off, the run marking the killed
+   OSD down itself.  The card's compute mode must be Default.  Pool M
+   is torch k=8 m=3 cauchy, stripe unit 4096 B, 16 PGs.  Through
+   RadosClient, 16 in flight: 64 x 4 MiB written, 16 partial 64 KiB
+   overwrites (8 KiB shard writes: BlueStore's deferred path); right
+   after, the OSD holding data shard 1 of the first overwritten object
+   SIGKILLed and marked down; 16 x 4 MiB written while it is down;
+   every object read degraded (K1); the OSD revived on its BlueStore
+   (deferred writes and the kv WAL replayed at mount) and the cluster
+   waited to active+clean on the mon's `pg stat` (the missed shards
+   rebuilt by K1 decodes); every object read; every daemon SIGKILLed,
+   the mon too, and restarted from its data dir to active+clean; every
+   acked object read; a deep scrub through every OSD's admin socket
+   (K5).  Every read must equal what was written; the scrub must find
+   0 errors with device bytes > 0; after the run every shard in every
+   OSD's BlueStore, mounted offline, must match its HashInfo or chunk
+   crc.  Each daemon's launches are read through its `launch profile`
+   after its boot and before it is killed: K1, K3 and K5 must each have
+   launched in the daemons, and only kernels the rows held.  Client
+   GB/s per step, each daemon's boot seconds, the SIGKILL-to-active+
+   clean wall and the bytes rebuilt, the cold restart's boot and
+   active+clean seconds, deep-scrub GB/s, bytes on disk per OSD and
+   the launches by kernel are printed with the card's name and power
+   limit.
+15. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
-its own phase, in the recovery storm, in phase K and in phase L), the
+its own phase, in the recovery storm, in phase K, in phase L and in
+phase M's daemons), the
 main paths', the benchmark's, the w32 sweep's, the CLAY repair's, the
 recovery storm's, the deep scrub's, the boot's, the mesh's, the
-cluster's and the A/B's lines,
+cluster's, the process cluster's and the A/B's lines,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
@@ -2203,17 +2236,21 @@ def _windowed(submits, depth: int) -> None:
 
 def cluster_shard_crcs(osds) -> dict:
     """Every shard on every live OSD's store against its integrity
-    xattr: a valid HashInfo's cumulative crc, or the chunk_crc of an
-    object in overwrite mode, must equal the host crc32c of the shard's
-    bytes.  Returns the counts checked."""
+    xattr (store_shard_crcs)."""
+    return store_shard_crcs({osd.osd_id: osd.store for osd in osds
+                             if osd is not None})
+
+
+def store_shard_crcs(stores: dict) -> dict:
+    """Every shard in each store of {osd id: store} against its
+    integrity xattr: a valid HashInfo's cumulative crc, or the
+    chunk_crc of an object in overwrite mode, must equal the host
+    crc32c of the shard's bytes.  Returns the counts checked."""
     from ceph_tpu_torch.common import crc32c as host_crc
     from ceph_tpu_torch.osd.ec_util import (CHUNK_CRC_KEY, HINFO_KEY,
                                             HashInfo)
     out = {"hinfo": 0, "chunk_crc": 0}
-    for osd in osds:
-        if osd is None:
-            continue
-        store = osd.store
+    for osd_id, store in stores.items():
         for cid in store.list_collections():
             for oid in store.list_objects(cid):
                 attrs = store.getattrs(cid, oid)
@@ -2227,7 +2264,7 @@ def cluster_shard_crcs(osds) -> dict:
                     kind = "hinfo"
                     if len(data) != h.total_chunk_size:
                         raise AssertionError(
-                            f"osd.{osd.osd_id} {cid} {oid}: {len(data)} "
+                            f"osd.{osd_id} {cid} {oid}: {len(data)} "
                             f"bytes, HashInfo says {h.total_chunk_size}")
                 elif CHUNK_CRC_KEY in attrs:
                     want = int.from_bytes(attrs[CHUNK_CRC_KEY], "little")
@@ -2236,7 +2273,7 @@ def cluster_shard_crcs(osds) -> dict:
                     continue
                 if got != want:
                     raise AssertionError(
-                        f"osd.{osd.osd_id} {cid} {oid}: crc32c {got:#x}, "
+                        f"osd.{osd_id} {cid} {oid}: crc32c {got:#x}, "
                         f"its {kind} says {want:#x}")
                 out[kind] += 1
     return out
@@ -2511,6 +2548,310 @@ def phase_cluster(tmp) -> tuple[dict, dict]:
     return total, res
 
 
+# Phase M: a cluster of processes over BlueStore (Ceph Octopus's default
+# osd_objectstore).  A mon with a data dir and 12 OSD daemons, each its
+# own process (tools/proc_cluster.ProcCluster -> tools/daemon_main) with
+# its codecs and host launch queue on the card, the boot prewarm on, and
+# the kernel library loaded from a cache directory of the run's own.
+# Pool M is ISA-L's canonical k=8 m=3 on the torch plugin, its point
+# pinned to K3; 12 OSDs = k+m+1, so PGs can remap.  rados bench's 4 MiB
+# objects, 16 in flight.  Heartbeats are off: the run marks the killed
+# OSD down itself, and 13 processes booting on the host's cores must
+# not flap each other down.
+N_PROC_OSDS = 12
+PROC_POOL = ("poolm", {"plugin": "torch", "k": str(K), "m": str(M),
+                       "technique": "cauchy",
+                       "stripe_unit": str(STRIPE_UNIT)}, 16)
+N_PROC_OBJECTS = 64
+N_PROC_DOWN_OBJECTS = 16
+PROC_OBJECT = BIG
+N_PROC_RMW = 16
+PROC_RMW_LEN = SMALL
+PROC_DEPTH = 16
+PROC_BOOT_TIMEOUT_S = 120.0
+PROC_CLEAN_TIMEOUT_S = 300.0
+PROC_ASOK_TIMEOUT_S = 600.0
+
+
+def dir_bytes(path) -> int:
+    """Bytes a directory takes on disk (allocated blocks)."""
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        for f in files:
+            try:
+                total += os.stat(os.path.join(root, f)).st_blocks * 512
+            except OSError:
+                pass
+    return total
+
+
+def proc_cluster_run(device: str, root, cache_dir) -> dict:
+    """Phase M's traffic on one process cluster over BlueStore: write
+    and overwrite pool M, SIGKILL an OSD that holds shards of the
+    overwrites, write while it is down, read every object degraded,
+    revive it to active+clean, read, SIGKILL every daemon (the mon too),
+    restart them all from their data dirs to active+clean, read every
+    acked object, deep-scrub through every OSD's admin socket; then stop
+    the cluster and hold every shard in every OSD's BlueStore, mounted
+    offline, against its HashInfo or chunk crc.  Each daemon's kernel
+    launches are read through its `launch profile` after its boot
+    (launches by the prewarm are left out) and before it is killed."""
+    from ceph_tpu_torch.common.admin_socket import admin_command
+    from ceph_tpu_torch.store import create_store
+    from ceph_tpu_torch.tools.proc_cluster import ProcCluster
+    rng = np.random.default_rng(SEED + 13)
+    on_card = torch.device(device).type == "cuda"
+    asok_dir = root / "asok"
+    asok_dir.mkdir()
+    report = {"osds": N_PROC_OSDS, "steps": {}, "launches": {}}
+    c = ProcCluster(n_osds=N_PROC_OSDS, objectstore="bluestore",
+                    data_dir=str(root / "data"), asok_dir=str(asok_dir),
+                    heartbeat_interval=0.0, prewarm=True,
+                    compile_cache_dir=str(cache_dir),
+                    boot_timeout=PROC_BOOT_TIMEOUT_S, device=device)
+
+    def asok(osd_id, cmd, timeout=30.0):
+        return admin_command(c.asok_path(f"osd.{osd_id}"), cmd,
+                             timeout=timeout)
+
+    base = {}       # osd -> its launch counts when last read
+    totals = {}     # kernel -> launches in the daemons, summed
+
+    def boot_check(osd_id):
+        """A daemon just booted: its library came from the cache (0
+        builds), its prewarm ran without an error; its counts so far
+        (the prewarm's) become its baseline."""
+        ledger = asok(osd_id, {"prefix": "compile ledger"})
+        lib = ledger["kernel_library"]
+        cache = ledger["persistent_cache"]
+        if "error" in ledger or "error" in cache or \
+                lib["builds_in_process"] or not cache["enabled"] or \
+                cache["dir"] != str(cache_dir):
+            raise AssertionError(f"osd.{osd_id} boot: library {lib}, "
+                                 f"cache {cache}")
+        pw = asok(osd_id, {"prefix": "prewarm status"})
+        if "error" in (pw.get("boot") or {}) or \
+                not (pw.get("boot") or {}).get("planned"):
+            raise AssertionError(f"osd.{osd_id} prewarm: {pw.get('boot')}")
+        base[osd_id] = asok(osd_id, {"prefix": "launch profile"})[
+            "kernel_launches"]
+
+    def read_launches(label):
+        """Every running daemon's launches since its last reading."""
+        step = {}
+        for osd_id in range(N_PROC_OSDS):
+            if c.osd_procs[osd_id] is None:
+                continue
+            now = asok(osd_id, {"prefix": "launch profile"})[
+                "kernel_launches"]
+            for k, n in now.items():
+                d = n - base[osd_id].get(k, 0)
+                step[k] = step.get(k, 0) + d
+                totals[k] = totals.get(k, 0) + d
+            base[osd_id] = now
+        report["launches"][label] = step
+
+    def step(label, fn, nbytes):
+        t = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t
+        report["steps"][label] = {"wall_s": wall, "bytes": nbytes,
+                                  "GBps": nbytes / wall / 1e9}
+        read_launches(label)
+
+    def pushed():
+        out = 0
+        for i in range(N_PROC_OSDS):
+            if c.osd_procs[i] is not None:
+                perf = asok(i, {"prefix": "perf dump"})
+                out += int(perf.get(f"osd.{i}", {}).get(
+                    "recovery_pushed_bytes", 0))
+        return out
+
+    name, profile, pg_num = PROC_POOL
+    expect = {f"m{i}": rng.integers(0, 256, PROC_OBJECT, dtype=np.uint8)
+              for i in range(N_PROC_OBJECTS)}
+    down_expect = {f"d{i}": rng.integers(0, 256, PROC_OBJECT,
+                                         dtype=np.uint8)
+                   for i in range(N_PROC_DOWN_OBJECTS)}
+    t0 = time.perf_counter()
+    try:
+        c.start()
+        report["boot_s"] = time.perf_counter() - t0
+        report["daemon_ready_s"] = dict(c.ready_s)
+        for i in range(N_PROC_OSDS):
+            boot_check(i)
+        cl = c.client()
+        cl.set_ec_profile(name, profile)
+        cl.create_pool(name, "erasure", erasure_code_profile=name,
+                       pg_num=pg_num)
+        io = cl.open_ioctx(name)
+
+        def write(objs):
+            _windowed([lambda k=k, v=v: io.aio_write_full(k, v.tobytes())
+                       for k, v in objs.items()], PROC_DEPTH)
+
+        def read_all(what):
+            futs = {}
+
+            def submit(k):
+                futs[k] = io.aio_read(k, PROC_OBJECT)
+                return futs[k]
+            _windowed([lambda k=k: submit(k) for k in expect], PROC_DEPTH)
+            for k, v in expect.items():
+                got = futs[k].result(timeout=300)
+                if got != v.tobytes():
+                    g = np.frombuffer(got, dtype=np.uint8)
+                    bad = np.flatnonzero(g[:v.size] != v[:g.size])
+                    raise AssertionError(
+                        f"{what}: {k} read back wrong ({g.size} bytes "
+                        f"of {v.size}, {bad.size} differ from "
+                        f"{bad[:1].tolist()})")
+
+        step("write", lambda: write(expect), N_PROC_OBJECTS * PROC_OBJECT)
+        rmw = []
+        for k in rng.choice(sorted(expect), N_PROC_RMW, replace=False):
+            off = int(rng.integers(0, PROC_OBJECT - PROC_RMW_LEN))
+            patch = rng.integers(0, 256, PROC_RMW_LEN, dtype=np.uint8)
+            expect[k][off:off + PROC_RMW_LEN] = patch
+            rmw.append((k, off, patch.tobytes()))
+        step("rmw", lambda: _windowed(
+            [lambda r=r: io.client._pool.submit(io.write, r[0], r[2], r[1])
+             for r in rmw], PROC_DEPTH), N_PROC_RMW * PROC_RMW_LEN)
+
+        # SIGKILL an OSD holding a data shard of the first overwrite
+        pgid = cl.objecter._calc_target(io.pool_id, rmw[0][0])[0].pgid
+        victim = cl.objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+        report["victim"] = victim
+        t_kill = time.perf_counter()
+        c.kill_osd(victim)
+        c.mark_osd_down(victim)
+        deadline = time.time() + 30
+        while cl.objecter.osdmap.is_up(victim):
+            if time.time() > deadline:
+                raise AssertionError("the client never saw the down map")
+            cl.objecter.refresh_map(timeout=2.0)
+        step("write_down", lambda: write(down_expect),
+             N_PROC_DOWN_OBJECTS * PROC_OBJECT)
+        expect.update(down_expect)
+        all_bytes = len(expect) * PROC_OBJECT
+        step("degraded_read", lambda: read_all("degraded read"), all_bytes)
+        pushed0 = pushed()
+
+        def revive():
+            c.revive_osd(victim)
+            boot_check(victim)
+            c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+        step("revive_to_clean", revive, 0)
+        rec = report["steps"]["revive_to_clean"]
+        rec["bytes"] = pushed() - pushed0
+        rec["GBps"] = rec["bytes"] / rec["wall_s"] / 1e9
+        rec["sigkill_to_clean_s"] = time.perf_counter() - t_kill
+        if rec["bytes"] <= 0:
+            raise AssertionError("the revive rebuilt no shard bytes")
+        step("read_after_revive", lambda: read_all("read after revive"),
+             all_bytes)
+
+        # power loss: every daemon, the mon too
+        def cold_restart():
+            c.kill_all()
+            t = time.perf_counter()
+            restart = c.restart_all()
+            for i in range(N_PROC_OSDS):
+                boot_check(i)
+            clean = c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+            report["cold_restart"] = {
+                "ready_s": restart["ready_s"], "up_s": restart["up_s"],
+                "active_clean_s": time.perf_counter() - t,
+                "clean_wait_s": clean, "daemon_ready_s": dict(c.ready_s)}
+        step("cold_restart", cold_restart, 0)
+        cl = c.client()
+        io = cl.open_ioctx(name)
+        step("read_after_restart", lambda: read_all("read after restart"),
+             all_bytes)
+
+        scrub = {"pgs": 0, "objects": 0, "errors": [], "device_bytes": 0,
+                 "host_bytes": 0}
+
+        def deep_scrub():
+            for i in range(N_PROC_OSDS):
+                res = asok(i, {"prefix": "scrub", "deep": True},
+                           timeout=PROC_ASOK_TIMEOUT_S)
+                if "error" in res:
+                    raise AssertionError(f"osd.{i} scrub: {res}")
+                for r in res.values():
+                    scrub["pgs"] += 1
+                    scrub["objects"] += r["objects"]
+                    scrub["errors"] += r["errors"]
+                    scrub["device_bytes"] += r.get("device_bytes", 0)
+                    scrub["host_bytes"] += r.get("host_bytes", 0)
+        step("deep_scrub", deep_scrub, 0)
+        st = report["steps"]["deep_scrub"]
+        st["bytes"] = scrub["device_bytes"] + scrub["host_bytes"]
+        st["GBps"] = st["bytes"] / st["wall_s"] / 1e9
+        report["scrub"] = scrub
+        if scrub["errors"] or scrub["objects"] != len(expect):
+            raise AssertionError(f"deep scrub: {scrub}")
+        if on_card and scrub["device_bytes"] <= 0:
+            raise AssertionError(f"deep scrub ran no device bytes: {scrub}")
+    finally:
+        c.stop()
+    report["launch_totals"] = totals
+    report["disk_bytes"] = {f"osd.{i}": dir_bytes(root / "data" / f"osd.{i}")
+                            for i in range(N_PROC_OSDS)}
+    stores = {}
+    try:
+        for i in range(N_PROC_OSDS):
+            stores[i] = create_store("bluestore",
+                                     str(root / "data" / f"osd.{i}"))
+            stores[i].mount()
+        report["shard_crcs"] = store_shard_crcs(stores)
+    finally:
+        for s in stores.values():
+            s.umount()
+    if report["shard_crcs"]["hinfo"] < N_PROC_OBJECTS * (K + M) // 2:
+        raise AssertionError(f"too few HashInfo crcs checked: "
+                             f"{report['shard_crcs']}")
+    return report
+
+
+def phase_proc_cluster(tmp) -> tuple[dict, dict]:
+    """Phase M: the process cluster on the card.  The daemons load the
+    kernel library the parent built from a cache directory of the run's
+    own and inherit the pinned operating point.  Returns (the daemons'
+    launch counts, the report)."""
+    from ceph_tpu_torch.ops import _build
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    if mode != "Default":
+        raise AssertionError(f"phase M needs 13 processes on the card; "
+                             f"its compute mode is {mode!r}")
+    root = tmp / "proc"
+    cache_dir = root / "cache"
+    cache_dir.mkdir(parents=True)
+    shutil.copy2(_build.library_path(), cache_dir)
+    res = proc_cluster_run("cuda", root, cache_dir)
+    total = res["launch_totals"]
+    missing = [k for k in ("gf_bitmatmul", "fused_hier_acc_call",
+                           "crc32c_rows_l") if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase M missed kernels {missing}: {total}")
+    res["card"] = nvidia_smi_line()
+    res["compute_mode"] = mode
+    print(f"# proc cluster ({res['card']}): boot {res['boot_s']:.2f} s "
+          f"(daemons {res['daemon_ready_s']}); "
+          + "; ".join(f"{k} {v['GBps']:.4f} GB/s ({v['wall_s']:.3f} s)"
+                      for k, v in res["steps"].items()), flush=True)
+    print(f"# proc cluster: SIGKILL to active+clean "
+          f"{res['steps']['revive_to_clean']['sigkill_to_clean_s']:.3f} s, "
+          f"{res['steps']['revive_to_clean']['bytes']} bytes rebuilt; "
+          f"cold restart {res['cold_restart']}; disk bytes "
+          f"{res['disk_bytes']}; launches {total}", flush=True)
+    return total, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2570,16 +2911,21 @@ def main() -> int:
         pin_point(tmp / "pinned_cluster.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         cluster_counts, cluster = phase_cluster(tmp)
+        pin_point(tmp / "pinned_proc.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        proc_counts, proc = phase_proc_cluster(tmp)
         ab = phase_ab()
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
     held = {row["counter"] for row in rows}
-    unheld = [k for k, n in cluster_counts.items() if n and k not in held]
-    if unheld:
-        raise AssertionError(f"phase L launched {unheld}, which no kernel "
-                             f"row held against its plain version")
+    for phase, launched in (("L", cluster_counts), ("M", proc_counts)):
+        unheld = [k for k, n in launched.items() if n and k not in held]
+        if unheld:
+            raise AssertionError(f"phase {phase} launched {unheld}, which "
+                                 f"no kernel row held against its plain "
+                                 f"version")
     for row in rows:
         phase = row.pop("phase")
         counter = row.pop("counter")
@@ -2589,12 +2935,15 @@ def main() -> int:
             row["recovery_storm_launches"] = None
             row["mesh_launches"] = None
             row["cluster_launches"] = cluster["narrow_launches"]
+            # the daemons count K2's entries, not its branches
+            row["proc_cluster_launches"] = None
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
             c[counter] for c in storm_counts.values())
         row["mesh_launches"] = sum(c[counter] for c in mesh_counts.values())
         row["cluster_launches"] = cluster_counts[counter]
+        row["proc_cluster_launches"] = proc_counts.get(counter, 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -2621,6 +2970,7 @@ def main() -> int:
     print(json.dumps({"mesh": mesh, "mesh_launch_counts": mesh_counts}),
           flush=True)
     print(json.dumps({"cluster": cluster}), flush=True)
+    print(json.dumps({"proc_cluster": proc}), flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -874,3 +874,95 @@ def test_cluster_on_card(cuda_device):
     finally:
         ECLaunchQueue.reset_host()
         DeviceProfiler.reset_host()
+
+
+def test_proc_cluster_on_card(cuda_device, tmp_path):
+    """A mon and 12 OSD processes on BlueStore, every daemon's codecs on
+    the card, the kernel library loaded from a cache directory (0
+    builds in a daemon), a torch k=8 m=3 pool at the K3 point: writes,
+    an overwrite, an OSD SIGKILLed (degraded reads through K1), revived
+    to active+clean; every object reads back, a deep scrub through the
+    admin sockets finds nothing on the device path, and the daemons
+    launched K3, K1 and K5."""
+    import json
+    import shutil
+
+    from ceph_tpu_torch.common.admin_socket import admin_command
+    from ceph_tpu_torch.ops import _build, autotune
+    from ceph_tpu_torch.tools.proc_cluster import ProcCluster
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    shutil.copy2(_build.build(), cache)
+    point = tmp_path / "pinned.json"
+    point.write_text(json.dumps({"version": 2, "entries": {
+        autotune._device_key(cuda_device, 8, 3): {
+            **autotune.default_point(), "combine": "kernel", "gbps": 0.0,
+            "when": "pinned"}}}))
+    import os
+    os.environ["CEPH_TPU_AUTOTUNE_CACHE"] = str(point)   # the fixture's
+    rng = np.random.default_rng(65)                     # monkeypatch undoes
+    c = ProcCluster(n_osds=12, objectstore="bluestore", device="cuda",
+                    heartbeat_interval=0.0, prewarm=True,
+                    compile_cache_dir=str(cache),
+                    data_dir=str(tmp_path / "data"),
+                    asok_dir=str(tmp_path / "asok"))
+    (tmp_path / "asok").mkdir()
+
+    def asok(i, cmd):
+        return admin_command(c.asok_path(f"osd.{i}"), cmd, timeout=120)
+
+    launched, base = {}, {}
+
+    def count(ids):
+        """Each daemon's launches since its last reading (its boot's
+        prewarm left out)."""
+        for i in ids:
+            now = asok(i, {"prefix": "launch profile"})["kernel_launches"]
+            for k, n in now.items():
+                launched[k] = launched.get(k, 0) + n - base[i].get(k, 0)
+            base[i] = now
+
+    with c:
+        for i in range(12):
+            assert asok(i, {"prefix": "compile ledger"})[
+                "kernel_library"]["builds_in_process"] == 0
+            base[i] = asok(i, {"prefix": "launch profile"})[
+                "kernel_launches"]
+        cl = c.client()
+        cl.set_ec_profile("pp", {"plugin": "torch", "k": "8", "m": "3",
+                                 "technique": "cauchy",
+                                 "stripe_unit": "4096"})
+        cl.create_pool("ppool", "erasure", erasure_code_profile="pp",
+                       pg_num=8)
+        io = cl.open_ioctx("ppool")
+        objs = {f"p{i}": rng.integers(0, 256, 4 << 20, dtype=np.uint8)
+                for i in range(8)}
+        for name, data in objs.items():
+            io.write_full(name, data.tobytes())
+        patch = rng.integers(0, 256, 65536, dtype=np.uint8)
+        objs["p3"][100_000:165_536] = patch
+        io.write("p3", patch.tobytes(), offset=100_000)
+        pgid = cl.objecter._calc_target(io.pool_id, "p3")[0].pgid
+        victim = cl.objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+        count([victim])
+        c.kill_osd(victim)
+        c.mark_osd_down(victim)
+        while cl.objecter.osdmap.is_up(victim):
+            cl.objecter.refresh_map(timeout=2.0)
+        for name, data in objs.items():
+            assert io.read(name, len(data)) == data.tobytes()
+        c.revive_osd(victim)
+        base[victim] = asok(victim, {"prefix": "launch profile"})[
+            "kernel_launches"]
+        c.wait_active_clean(timeout=300)
+        for name, data in objs.items():
+            assert io.read(name, len(data)) == data.tobytes()
+        errors = device_bytes = 0
+        for i in range(12):
+            for res in asok(i, {"prefix": "scrub", "deep": True}).values():
+                errors += len(res["errors"])
+                device_bytes += res.get("device_bytes", 0)
+        assert errors == 0 and device_bytes > 0
+        count(range(12))
+    assert launched["gf_bitmatmul"] > 0 and launched["crc32c_rows_l"] > 0
+    assert launched["fused_hier_acc_call"] > 0

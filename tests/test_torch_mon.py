@@ -118,13 +118,22 @@ def test_cuda_validation_without_gpu_returns_error(monkeypatch):
 
 
 def test_persistent_stores_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        MonitorStore(str(tmp_path / "m"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Monitor(data_dir=str(tmp_path / "m"), device="cpu")
+    """The persistent stores are ported now: a MonitorStore and a
+    Monitor in a data dir ride the LSM engine, and create_store builds
+    each persistent kind."""
+    from ceph_tpu_torch.store.kv_lsm import LsmDB
+    ms = MonitorStore(str(tmp_path / "ms"))
+    assert isinstance(ms.db, LsmDB)
+    ms.db.close()
+    mon = Monitor(data_dir=str(tmp_path / "m"), device="cpu")
+    try:
+        assert isinstance(mon.store.db, LsmDB)
+    finally:
+        mon.shutdown()
     for kind in ("filestore", "bluestore", "bluestore-zlib"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            create_store(kind, str(tmp_path / kind))
+        store = create_store(kind, str(tmp_path / kind))
+        store.mount()
+        store.umount()
     assert create_store("memstore") is not None
 
 

@@ -212,15 +212,23 @@ def test_replicas_hold_the_same_bytes():
     assert state[0][1] == [] and state[0][2] == b""
 
 
-def test_store_create_waits_for_the_persistent_stores():
-    """create_store names FileStore and BlueStore, which the port has
-    not yet: it builds a MemStore, raises for the persistent kinds
-    (naming them as not ported), and the store package keeps the
-    reference's other names."""
+def test_store_create_waits_for_the_persistent_stores(tmp_path):
+    """create_store builds every kind the reference names — MemStore,
+    FileStore and BlueStore, plain and compressed — each mounting in its
+    directory; an unknown kind is an error, and the store package keeps
+    the reference's other names."""
+    from ceph_tpu_torch.store.blue_store import BlueStore
+    from ceph_tpu_torch.store.file_store import FileStore
     assert isinstance(tstore.create_store("memstore"), tstore.MemStore)
-    for kind in ("filestore", "bluestore", "bluestore-zlib"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tstore.create_store(kind, "/nonexistent")
+    for kind, cls, comp in (("filestore", FileStore, None),
+                            ("bluestore", BlueStore, None),
+                            ("bluestore-zlib", BlueStore, "zlib")):
+        store = tstore.create_store(kind, str(tmp_path / kind))
+        assert type(store) is cls
+        if cls is BlueStore:
+            assert store.compression == comp
+        store.mount()
+        store.umount()
     with pytest.raises(ValueError, match="unknown objectstore"):
         tstore.create_store("nostore")
     for name in ("ObjectStore", "Transaction", "MemStore"):
