@@ -22,14 +22,17 @@ Layer map:
             MeshService, the per-host launch queue, the CLAY repair plan
   osd/      ECBackend write/read/recovery pipeline, ECUtil, ECTransaction,
             PG log, the OSDMap, the OSD daemon
-  crush/    CRUSH placement
+  crush/    CRUSH placement and the CRUSH text compiler
   msg/      the messenger and its typed messages
   mon/      the monitor, its Paxos quorum and store
   auth/     cephx tickets and authorizers; compressor/ frame compression
   cls/      object classes the daemon runs (lock, numops, log, ...)
-  osdc/     the objecter; rados/ the RADOS client
+  osdc/     the objecter; rados/ the RADOS client and the striper
+  rbd/      RBD images: snapshots, clones, diffs, exclusive lock,
+            object map, journal
   store/    ObjectStore contract + MemStore, the in-memory kv store
-  tools/    ec_benchmark, the kernel sweeps, the vstart dev cluster
+  tools/    ec_benchmark, the kernel sweeps, the vstart dev cluster,
+            crushtool and the rados and rbd CLIs
   csrc/     CUDA C++ kernels (sm_90a)
 
 Entry points run on the card unless the caller asks for the CPU
@@ -38,8 +41,6 @@ Entry points run on the card unless the caller asks for the CPU
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 # Plugins embed this and the registry refuses mismatches (reference:
@@ -47,10 +48,11 @@ __version__ = "0.1.0"
 PLUGIN_ABI_VERSION = "ceph-tpu-torch-plugin-1"
 
 
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+def resolve_device(device: "str | torch.device" = "cuda") -> "torch.device":
     """The torch.device an entry point runs on.  "cuda" resolves to the
     current card's indexed device; a CUDA request on a machine without
     a usable GPU raises instead of quietly running on the CPU."""
+    import torch      # not at import: the client tools never touch it
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

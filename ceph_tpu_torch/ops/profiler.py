@@ -24,6 +24,9 @@ still carry the card's other first-use costs (the CUDA context, each
 kernel's lazy module load, pinned staging), which the ledger shows as
 first_s against steady_s.  A compile over `stall_s` counts in
 `ec_compile_stalls` and enters the window `compile_report()` sums.
+`inject_stall_s` (conf osd_ec_inject_compile_stall) sleeps in the
+submit of each first-seen bucket and counts it as a build, as the
+reference's does.
 
 The boot prewarm (ops/prewarm.py) seeds the buckets it ran through
 `note_prewarm`, so their first runtime launch is not first-seen;
@@ -80,8 +83,8 @@ def _build_prof_perf(name: str = "device_profiler"):
 
 
 class LaunchRecord:
-    """One device launch's ledger entry (the ring's payload; the
-    reference's op-trace ids come with tracked ops, not ported yet)."""
+    """One device launch's ledger entry (the ring's payload), with the
+    trace ids of the tracked ops it served in `traces`."""
 
     __slots__ = ("launch_id", "kind", "codec", "bucket", "path",
                  "runs", "nbytes", "pg_mix", "traces", "queue_wait_s",
@@ -150,6 +153,11 @@ class DeviceProfiler:
         self.enabled = enabled
         self.stall_s = float(stall_s)
         self.storm_window_s = float(storm_window_s)
+        # fault injection (conf osd_ec_inject_compile_stall): sleep
+        # inside the submit of every first-seen bucket, which then
+        # counts as a build — the shape of a real build stall, for the
+        # storm and health checks
+        self.inject_stall_s = 0.0
         self.perf = perf if perf is not None else _build_prof_perf()
         self._lock = threading.Lock()
         self._next_id = 1
@@ -226,11 +234,19 @@ class DeviceProfiler:
         the histograms and the ring, never in the build ledger."""
         if rec is None:
             return
+        if jit and self.inject_stall_s > 0:
+            with self._lock:
+                first = bucket not in self._buckets
+            if first:
+                time.sleep(self.inject_stall_s)
+        else:
+            first = False
         rec.submit_s = time.perf_counter() - rec._t0
         rec.bucket = bucket
         rec.path = path
         if jit:
-            built = _build.build_count() > rec._builds0
+            # an armed injection is a build, whatever the library did
+            built = first or _build.build_count() > rec._builds0
             stalled = hit = False
             with self._lock:
                 ent = self._buckets.get(bucket)

@@ -213,7 +213,31 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    active+clean seconds, deep-scrub GB/s, bytes on disk per OSD and
    the launches by kernel are printed with the card's name and power
    limit.
-15. A/B (phase F): the native CPU library must have built; then
+15. The block service (phase N): a process cluster of its own laid out
+   as phase M's (a mon and 12 OSD processes on BlueStore, the library
+   from the run's cache dir with 0 builds, prewarm on, heartbeats off)
+   and an EC pool `rbd` of torch k=8 m=3 (K3 pinned), 16 PGs, driven
+   through the `rbd` and `rados` CLIs (tools/rbd_cli, tools/rados_cli,
+   each a subprocess with `-m` the mon) at RBD's default order 22 (4 MiB
+   objects), a RadosClient in the parent keeping the bytes expected:
+   `rbd create` of a 1 GiB thin image and `rbd import` of a seeded 256
+   MiB file; `rbd bench` at 4 MiB (64 whole-object writes, K3) and at
+   4 KiB over 256 KiB (64 read-modify-writes, K1 encodes); `rbd snap
+   create`, 16 writes of 64 KiB through the library (copy-on-write
+   clones on the OSDs), `rbd export-diff` from the snapshot and up to
+   it, `rbd export` of the image and of an image rebuilt from the
+   diffs by `rbd import-diff`; `rbd clone` of the snapshot and 16
+   writes of 4 KiB into the clone (each first write to a block a
+   copyup); a 64 MiB striped object at libradosstriper's default layout
+   read whole, in part, and its first piece through `rados get`; then
+   the OSD of data shard 1 of the image's first object SIGKILLed and
+   marked down, `rbd export` degraded (K1 decodes), the OSD revived to
+   active+clean, `rbd export` again.  Every export and read must equal
+   the bytes expected; K3 and K1 must have launched in the daemons, and
+   only kernels the rows held.  Each step's wall, bytes and GB/s, `rbd
+   bench`'s own MB/s and the launches by kernel are printed with the
+   card's name and power limit.
+16. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
@@ -221,10 +245,11 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
 its own phase, in the recovery storm, in phase K, in phase L and in
-phase M's daemons), the
+phase M's and phase N's daemons), the
 main paths', the benchmark's, the w32 sweep's, the CLAY repair's, the
 recovery storm's, the deep scrub's, the boot's, the mesh's, the
-cluster's, the process cluster's and the A/B's lines,
+cluster's, the process cluster's, the block service's and the A/B's
+lines,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
@@ -242,6 +267,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2585,6 +2611,64 @@ def dir_bytes(path) -> int:
     return total
 
 
+class ProcDaemons:
+    """The OSD daemons of a process cluster, read through their admin
+    sockets: `boot_check` after a daemon's boot, `read_launches` after
+    a step.  Launches by the prewarm are left out."""
+
+    def __init__(self, c, cache_dir):
+        self.c, self.cache_dir = c, cache_dir
+        self.base = {}       # osd -> its launch counts when last read
+        self.totals = {}     # kernel -> launches in the daemons, summed
+
+    def asok(self, osd_id, cmd, timeout=30.0):
+        from ceph_tpu_torch.common.admin_socket import admin_command
+        return admin_command(self.c.asok_path(f"osd.{osd_id}"), cmd,
+                             timeout=timeout)
+
+    def boot_check(self, osd_id):
+        """A daemon just booted: its library came from the cache (0
+        builds), its prewarm ran without an error; its counts so far
+        (the prewarm's) become its baseline."""
+        ledger = self.asok(osd_id, {"prefix": "compile ledger"})
+        lib = ledger["kernel_library"]
+        cache = ledger["persistent_cache"]
+        if "error" in ledger or "error" in cache or \
+                lib["builds_in_process"] or not cache["enabled"] or \
+                cache["dir"] != str(self.cache_dir):
+            raise AssertionError(f"osd.{osd_id} boot: library {lib}, "
+                                 f"cache {cache}")
+        pw = self.asok(osd_id, {"prefix": "prewarm status"})
+        if "error" in (pw.get("boot") or {}) or \
+                not (pw.get("boot") or {}).get("planned"):
+            raise AssertionError(f"osd.{osd_id} prewarm: {pw.get('boot')}")
+        self.base[osd_id] = self.asok(
+            osd_id, {"prefix": "launch profile"})["kernel_launches"]
+
+    def read_launches(self) -> dict:
+        """Every running daemon's launches since its last reading."""
+        step = {}
+        for osd_id, proc in enumerate(self.c.osd_procs):
+            if proc is None:
+                continue
+            now = self.asok(osd_id, {"prefix": "launch profile"})[
+                "kernel_launches"]
+            for k, n in now.items():
+                d = n - self.base[osd_id].get(k, 0)
+                step[k] = step.get(k, 0) + d
+                self.totals[k] = self.totals.get(k, 0) + d
+            self.base[osd_id] = now
+        return step
+
+
+def timed(fn, nbytes) -> dict:
+    """Wall seconds, bytes and GB/s of one call of fn."""
+    t = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t
+    return {"wall_s": wall, "bytes": nbytes, "GBps": nbytes / wall / 1e9}
+
+
 def proc_cluster_run(device: str, root, cache_dir) -> dict:
     """Phase M's traffic on one process cluster over BlueStore: write
     and overwrite pool M, SIGKILL an OSD that holds shards of the
@@ -2596,7 +2680,6 @@ def proc_cluster_run(device: str, root, cache_dir) -> dict:
     offline, against its HashInfo or chunk crc.  Each daemon's kernel
     launches are read through its `launch profile` after its boot
     (launches by the prewarm are left out) and before it is killed."""
-    from ceph_tpu_torch.common.admin_socket import admin_command
     from ceph_tpu_torch.store import create_store
     from ceph_tpu_torch.tools.proc_cluster import ProcCluster
     rng = np.random.default_rng(SEED + 13)
@@ -2609,55 +2692,12 @@ def proc_cluster_run(device: str, root, cache_dir) -> dict:
                     heartbeat_interval=0.0, prewarm=True,
                     compile_cache_dir=str(cache_dir),
                     boot_timeout=PROC_BOOT_TIMEOUT_S, device=device)
-
-    def asok(osd_id, cmd, timeout=30.0):
-        return admin_command(c.asok_path(f"osd.{osd_id}"), cmd,
-                             timeout=timeout)
-
-    base = {}       # osd -> its launch counts when last read
-    totals = {}     # kernel -> launches in the daemons, summed
-
-    def boot_check(osd_id):
-        """A daemon just booted: its library came from the cache (0
-        builds), its prewarm ran without an error; its counts so far
-        (the prewarm's) become its baseline."""
-        ledger = asok(osd_id, {"prefix": "compile ledger"})
-        lib = ledger["kernel_library"]
-        cache = ledger["persistent_cache"]
-        if "error" in ledger or "error" in cache or \
-                lib["builds_in_process"] or not cache["enabled"] or \
-                cache["dir"] != str(cache_dir):
-            raise AssertionError(f"osd.{osd_id} boot: library {lib}, "
-                                 f"cache {cache}")
-        pw = asok(osd_id, {"prefix": "prewarm status"})
-        if "error" in (pw.get("boot") or {}) or \
-                not (pw.get("boot") or {}).get("planned"):
-            raise AssertionError(f"osd.{osd_id} prewarm: {pw.get('boot')}")
-        base[osd_id] = asok(osd_id, {"prefix": "launch profile"})[
-            "kernel_launches"]
-
-    def read_launches(label):
-        """Every running daemon's launches since its last reading."""
-        step = {}
-        for osd_id in range(N_PROC_OSDS):
-            if c.osd_procs[osd_id] is None:
-                continue
-            now = asok(osd_id, {"prefix": "launch profile"})[
-                "kernel_launches"]
-            for k, n in now.items():
-                d = n - base[osd_id].get(k, 0)
-                step[k] = step.get(k, 0) + d
-                totals[k] = totals.get(k, 0) + d
-            base[osd_id] = now
-        report["launches"][label] = step
+    daemons = ProcDaemons(c, cache_dir)
+    asok, boot_check = daemons.asok, daemons.boot_check
 
     def step(label, fn, nbytes):
-        t = time.perf_counter()
-        fn()
-        wall = time.perf_counter() - t
-        report["steps"][label] = {"wall_s": wall, "bytes": nbytes,
-                                  "GBps": nbytes / wall / 1e9}
-        read_launches(label)
+        report["steps"][label] = timed(fn, nbytes)
+        report["launches"][label] = daemons.read_launches()
 
     def pushed():
         out = 0
@@ -2796,7 +2836,7 @@ def proc_cluster_run(device: str, root, cache_dir) -> dict:
             raise AssertionError(f"deep scrub ran no device bytes: {scrub}")
     finally:
         c.stop()
-    report["launch_totals"] = totals
+    report["launch_totals"] = daemons.totals
     report["disk_bytes"] = {f"osd.{i}": dir_bytes(root / "data" / f"osd.{i}")
                             for i in range(N_PROC_OSDS)}
     stores = {}
@@ -2852,12 +2892,271 @@ def phase_proc_cluster(tmp) -> tuple[dict, dict]:
     return total, res
 
 
+# Phase N: the block service.  RBD images at Ceph Octopus's
+# rbd_default_order = 22 (4 MiB objects, src/common/options.cc) in an EC
+# pool `rbd` of ISA-L's canonical k=8 m=3 on the torch plugin (K3
+# pinned), 16 PGs, in a process cluster of its own laid out as phase
+# M's, driven through the `rbd` and `rados` CLIs.  `rbd bench`'s
+# io-total at 4 KiB (its default io-size) is cut from Ceph's 1 GiB to
+# 256 KiB: each 4 KiB write on an EC pool is a read-modify-write.  The
+# striped object takes libradosstriper's default layout (stripe unit 4
+# MiB, stripe count 1, object size 4 MiB: default_file_layout in
+# src/libradosstriper/RadosStriperImpl.cc).
+N_RBD_OSDS = 12
+RBD_POOL = ("rbd", PROC_POOL[1], 16)
+RBD_SIZES = {
+    "order": 22,
+    "image": 1 << 30,                   # vol0, a thin image
+    "import": 256 << 20,                # vol1, imported from a file
+    "bench_big": (4 << 20, 256 << 20),  # rbd bench io-size, io-total
+    "bench_small": (4 << 10, 256 << 10),
+    "snap_writes": (16, 64 << 10),      # writes after the snapshot
+    "child_writes": (16, 4 << 10),      # writes into the clone
+    "striper": (64 << 20, 4 << 20, 1, 4 << 20),  # size, su, sc, os
+}
+RBD_CLI_TIMEOUT_S = 600.0
+
+
+def check_bytes(got, want: np.ndarray, what: str) -> None:
+    """`got` (bytes, or the path of a file) must equal `want`."""
+    g = np.fromfile(got, dtype=np.uint8) if isinstance(got, Path) else \
+        np.frombuffer(got, dtype=np.uint8)
+    if g.size != want.size or not np.array_equal(g, want):
+        n = min(g.size, want.size)
+        bad = np.flatnonzero(g[:n] != want[:n])
+        raise AssertionError(f"{what}: {g.size} bytes (want {want.size}), "
+                             f"{bad.size} differ from {bad[:1].tolist()}")
+
+
+def rbd_sequence(io, cli, rbd_mod, striper_cls, c, revived, root: Path,
+                 sizes: dict, step) -> dict:
+    """Phase N's traffic on one cluster: images, snapshots, diffs, a
+    clone, a striped object, and an export with the OSD of data shard 1
+    of the first object down and after its revive.  `cli(tool, argv)`
+    runs the `rbd_cli` or `rados_cli` tool on the pool and returns its
+    stdout; `rbd_mod` and `striper_cls` are the library's (the parent
+    keeps what it expects through them and `io`); `c` is the cluster
+    (kill_osd, mark_osd_down, revive_osd, wait_active_clean) and
+    `revived(osd)` runs after a revive; `step(label, fn, nbytes)` times
+    each step.  Every export and read must equal what was written.
+    Returns the CLI's `rbd bench` rates and the sha256 of every export,
+    diff stream and striped read."""
+    import hashlib
+    rng = np.random.default_rng(SEED + 14)
+    order, image = str(sizes["order"]), sizes["image"]
+    out = {"bench_MBps": {}, "sha256": {}}
+
+    def rbd(*argv):
+        return cli("rbd_cli", [str(a) for a in argv])
+
+    def export(name, want, label):
+        path = root / f"{label}.img"
+        step(label, lambda: rbd("export", name, path), want.size)
+        check_bytes(path, want, f"{label}: rbd export {name}")
+        out["sha256"][label] = hashlib.sha256(path.read_bytes()).hexdigest()
+        path.unlink()
+
+    def bench(label, io_size, io_total):
+        def run():
+            said = rbd("bench", "vol0", "--io-size", io_size,
+                       "--io-total", io_total)
+            out["bench_MBps"][label] = float(said.split("=")[-1].split()[0])
+        n = min(io_total, image) // io_size
+        step(label, run, n * io_size)
+        payload = np.random.default_rng(0).integers(0, 256, io_size,
+                                                    dtype=np.uint8)
+        vol0[:n * io_size] = np.tile(payload, n)
+
+    def seeded_writes(n, length, limit):
+        """n (offset, bytes) pairs: 4 KiB aligned, below `limit`."""
+        return [(int(rng.integers(0, (limit - length) // 4096 + 1)) * 4096,
+                 rng.integers(0, 256, length, dtype=np.uint8))
+                for _ in range(n)]
+
+    # 1. a thin image, and an image imported from a file
+    vol0 = np.zeros(image, dtype=np.uint8)
+    vol1 = rng.integers(0, 256, sizes["import"], dtype=np.uint8)
+    vol1.tofile(root / "vol1.src")
+    step("create", lambda: rbd("create", "vol0", "--size", image,
+                               "--order", order), 0)
+    step("import", lambda: rbd("import", root / "vol1.src", "vol1",
+                               "--order", order), vol1.size)
+    export("vol1", vol1, "export_vol1")
+    # 2, 3. rbd bench: whole objects, then 4 KiB read-modify-writes
+    bench("bench_big", *sizes["bench_big"])
+    bench("bench_small", *sizes["bench_small"])
+    # 4. a snapshot, writes under it (copy-on-write clones on the OSDs),
+    # the diffs and the exports
+    written = sizes["bench_big"][1]
+    step("snap_create", lambda: rbd("snap", "create", "vol0@s1"), 0)
+    vol0_s1 = vol0.copy()
+    patches = seeded_writes(*sizes["snap_writes"], written)
+    for off, p in patches:
+        vol0[off:off + p.size] = p
+    img = rbd_mod.Image(io, "vol0")
+    step("snap_writes", lambda: [img.write(off, p.tobytes())
+                                 for off, p in patches],
+         sum(p.size for _, p in patches))
+    img.snap_set("s1")
+    got = {}
+    step("read_s1", lambda: got.update(s1=img.read(0, image)), image)
+    check_bytes(got.pop("s1"), vol0_s1, "vol0@s1 read")
+    img.close()
+    diff, full = root / "vol0.s1-head.diff", root / "vol0.s1.diff"
+    step("export_diff", lambda: rbd("export-diff", "--from-snap", "s1",
+                                    "vol0", diff), 0)
+    step("export_diff_s1", lambda: rbd("export-diff", "vol0@s1", full), 0)
+    for label, path in (("export_diff", diff), ("export_diff_s1", full)):
+        out["sha256"][label] = hashlib.sha256(path.read_bytes()).hexdigest()
+        out.setdefault("diff_bytes", {})[label] = path.stat().st_size
+    export("vol0", vol0, "export_vol0")
+    # the reference CLI exports no snapshot: an image rebuilt from the
+    # full diff up to s1 (which also makes its s1) stands in for it
+    step("import_diff_s1", lambda: (
+        rbd("create", "vol0s1", "--size", image, "--order", order),
+        rbd("import-diff", full, "vol0s1")), full.stat().st_size)
+    export("vol0s1", vol0_s1, "export_vol0s1_at_s1")
+    step("import_diff", lambda: rbd("import-diff", diff, "vol0s1"),
+         diff.stat().st_size)
+    export("vol0s1", vol0, "export_vol0s1")
+    # 5. a clone of s1: each first write to a block copies it up
+    step("clone", lambda: rbd("clone", "vol0@s1", "child"), 0)
+    child_want = vol0_s1.copy()
+    patches = seeded_writes(*sizes["child_writes"], written)
+    for off, p in patches:
+        child_want[off:off + p.size] = p
+    child = rbd_mod.Image(io, "child")
+    step("child_writes", lambda: [child.write(off, p.tobytes())
+                                  for off, p in patches],
+         sum(p.size for _, p in patches))
+    child.close()
+    export("child", child_want, "export_child")
+    # 6. a striped object, read whole, in part, and its first piece
+    # through `rados get`
+    size, su, sc, os_ = sizes["striper"]
+    so = striper_cls(io, "striped", stripe_unit=su, stripe_count=sc,
+                     object_size=os_)
+    blob = rng.integers(0, 256, size, dtype=np.uint8)
+    step("striper_write", lambda: so.write(blob.tobytes()), size)
+    lo, hi = 3 * su + 12345, 4 * su + 13122
+
+    step("striper_read", lambda: got.update(whole=so.read(),
+                                            part=so.read(hi - lo, offset=lo)),
+         size + hi - lo)
+    check_bytes(got["whole"], blob, "striped read")
+    check_bytes(got.pop("part"), blob[lo:hi], "striped unaligned read")
+    out["sha256"]["striper"] = hashlib.sha256(got.pop("whole")).hexdigest()
+    step("rados_get", lambda: cli("rados_cli", [
+        "get", "striped.0000000000000000", str(root / "piece0")]), os_)
+    check_bytes(root / "piece0", blob[:os_], "rados get of piece 0")
+    # 7. the OSD of data shard 1 of vol0's first object down, then back
+    objecter = io.client.objecter
+    pgid = objecter._calc_target(io.pool_id,
+                                 "rbd_data.vol0.0000000000000000")[0].pgid
+    victim = objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+    out["victim"] = victim
+    c.kill_osd(victim)
+    c.mark_osd_down(victim)
+    deadline = time.time() + 30
+    while objecter.osdmap.is_up(victim):
+        if time.time() > deadline:
+            raise AssertionError("the client never saw the down map")
+        objecter.refresh_map(timeout=2.0)
+    export("vol0", vol0, "export_degraded")
+
+    def revive():
+        c.revive_osd(victim)
+        revived(victim)
+        c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+    step("revive_to_clean", revive, 0)
+    export("vol0", vol0, "export_after_revive")
+    return out
+
+
+def block_service_run(device: str, root, cache_dir) -> dict:
+    """Phase N on one process cluster over BlueStore: rbd_sequence
+    through the `rbd` and `rados` CLIs, each a subprocess with `-m` the
+    mon's address.  Each step's launches are read through the daemons'
+    `launch profile`, as phase M's are."""
+    from ceph_tpu_torch import rbd as rbd_mod
+    from ceph_tpu_torch.rados.striper import StripedObject
+    from ceph_tpu_torch.tools.proc_cluster import ProcCluster
+    asok_dir = root / "asok"
+    asok_dir.mkdir(parents=True)
+    report = {"osds": N_RBD_OSDS, "steps": {}, "launches": {}}
+    c = ProcCluster(n_osds=N_RBD_OSDS, objectstore="bluestore",
+                    data_dir=str(root / "data"), asok_dir=str(asok_dir),
+                    heartbeat_interval=0.0, prewarm=True,
+                    compile_cache_dir=str(cache_dir),
+                    boot_timeout=PROC_BOOT_TIMEOUT_S, device=device)
+    daemons = ProcDaemons(c, cache_dir)
+
+    def step(label, fn, nbytes):
+        report["steps"][label] = timed(fn, nbytes)
+        report["launches"][label] = daemons.read_launches()
+
+    name, profile, pg_num = RBD_POOL
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def cli(tool, argv):
+        mon = "%s:%d" % tuple(c.mon_addrs[0])
+        proc = subprocess.run(
+            [sys.executable, "-m", f"ceph_tpu_torch.tools.{tool}", "-m",
+             mon, "-p", name, *argv], capture_output=True, text=True,
+            cwd=here, timeout=RBD_CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"{tool} {argv} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:]}")
+        return proc.stdout
+
+    t0 = time.perf_counter()
+    try:
+        c.start()
+        report["boot_s"] = time.perf_counter() - t0
+        for i in range(N_RBD_OSDS):
+            daemons.boot_check(i)
+        cl = c.client()
+        cl.set_ec_profile(name, profile)
+        cl.create_pool(name, "erasure", erasure_code_profile=name,
+                       pg_num=pg_num)
+        io = cl.open_ioctx(name)
+        report.update(rbd_sequence(io, cli, rbd_mod, StripedObject, c,
+                                   daemons.boot_check, root, RBD_SIZES,
+                                   step))
+    finally:
+        c.stop()
+    report["launch_totals"] = daemons.totals
+    return report
+
+
+def phase_block_service(tmp) -> tuple[dict, dict]:
+    """Phase N: the block service on the card, in a process cluster of
+    its own whose daemons load the library the parent built.  Returns
+    (the daemons' launch counts, the report)."""
+    from ceph_tpu_torch.ops import _build
+    root = tmp / "rbd"
+    cache_dir = root / "cache"
+    cache_dir.mkdir(parents=True)
+    shutil.copy2(_build.library_path(), cache_dir)
+    res = block_service_run("cuda", root, cache_dir)
+    total = res["launch_totals"]
+    missing = [k for k in ("gf_bitmatmul", "fused_hier_acc_call")
+               if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase N missed kernels {missing}: {total}")
+    res["card"] = nvidia_smi_line()
+    print(f"# block service ({res['card']}): boot {res['boot_s']:.2f} s; "
+          + "; ".join(f"{k} {v['GBps']:.4f} GB/s ({v['wall_s']:.3f} s)"
+                      for k, v in res["steps"].items())
+          + f"; rbd bench {res['bench_MBps']} MB/s; launches {total}",
+          flush=True)
+    return total, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from pathlib import Path
-
     from ceph_tpu_torch import resolve_device
     from ceph_tpu_torch.ec import ErasureCodePluginRegistry, gf
     from ceph_tpu_torch.ops import _build, autotune
@@ -2914,13 +3213,17 @@ def main() -> int:
         pin_point(tmp / "pinned_proc.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         proc_counts, proc = phase_proc_cluster(tmp)
+        pin_point(tmp / "pinned_rbd.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        rbd_counts, rbd = phase_block_service(tmp)
         ab = phase_ab()
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
     held = {row["counter"] for row in rows}
-    for phase, launched in (("L", cluster_counts), ("M", proc_counts)):
+    for phase, launched in (("L", cluster_counts), ("M", proc_counts),
+                            ("N", rbd_counts)):
         unheld = [k for k, n in launched.items() if n and k not in held]
         if unheld:
             raise AssertionError(f"phase {phase} launched {unheld}, which "
@@ -2937,6 +3240,7 @@ def main() -> int:
             row["cluster_launches"] = cluster["narrow_launches"]
             # the daemons count K2's entries, not its branches
             row["proc_cluster_launches"] = None
+            row["block_service_launches"] = None
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
@@ -2944,6 +3248,7 @@ def main() -> int:
         row["mesh_launches"] = sum(c[counter] for c in mesh_counts.values())
         row["cluster_launches"] = cluster_counts[counter]
         row["proc_cluster_launches"] = proc_counts.get(counter, 0)
+        row["block_service_launches"] = rbd_counts.get(counter, 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -2971,6 +3276,7 @@ def main() -> int:
           flush=True)
     print(json.dumps({"cluster": cluster}), flush=True)
     print(json.dumps({"proc_cluster": proc}), flush=True)
+    print(json.dumps({"block_service": rbd}), flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

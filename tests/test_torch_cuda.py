@@ -966,3 +966,77 @@ def test_proc_cluster_on_card(cuda_device, tmp_path):
         count(range(12))
     assert launched["gf_bitmatmul"] > 0 and launched["crc32c_rows_l"] > 0
     assert launched["fused_hier_acc_call"] > 0
+
+
+def test_rbd_on_card(cuda_device, tmp_path, monkeypatch):
+    """An RBD image at order 22 (4 MiB objects) on a torch k=8 m=3 pool
+    in a cluster whose codecs run on the card, its point pinned to K3:
+    `rbd import` of 8 objects (K3), 4 KiB writes (read-modify-writes:
+    K1 encodes), a snapshot, writes under it, `rbd export` of the head
+    and `rbd export-diff` up to the snapshot imported into a second
+    image; both exports equal the bytes expected."""
+    import contextlib
+    import io as _io
+    import json
+
+    from ceph_tpu_torch.ops import autotune
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops.profiler import DeviceProfiler
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.rbd import Image
+    from ceph_tpu_torch.tools import rbd_cli
+    from ceph_tpu_torch.tools.vstart import Cluster
+    point = tmp_path / "pinned.json"
+    point.write_text(json.dumps({"version": 2, "entries": {
+        autotune._device_key(cuda_device, 8, 3): {
+            **autotune.default_point(), "combine": "kernel", "gbps": 0.0,
+            "when": "pinned"}}}))
+    monkeypatch.setenv("CEPH_TPU_AUTOTUNE_CACHE", str(point))
+    ECLaunchQueue.reset_host()
+    DeviceProfiler.reset_host()
+    rng = np.random.default_rng(66)
+    data = rng.integers(0, 256, 32 << 20, dtype=np.uint8)
+    (tmp_path / "src").write_bytes(data.tobytes())
+    try:
+        with Cluster(n_osds=12, device=str(cuda_device)) as c:
+            cl = c.client()
+            cl.set_ec_profile("rp", {"plugin": "torch", "k": "8", "m": "3",
+                                     "technique": "cauchy",
+                                     "stripe_unit": "4096"})
+            cl.create_pool("rbd", "erasure", erasure_code_profile="rp",
+                           pg_num=16)
+            io = cl.open_ioctx("rbd")
+            base = ["-m", "%s:%d" % tuple(c.mon.addr), "-p", "rbd"]
+
+            def rbd(*argv):
+                with contextlib.redirect_stdout(_io.StringIO()):
+                    assert rbd_cli.main(base + [str(a) for a in argv]) == 0
+            bs.reset_launch_counts()
+            rbd("import", tmp_path / "src", "vol")
+            img = Image(io, "vol")
+            for _ in range(8):
+                off = int(rng.integers(0, (32 << 20) // 4096)) * 4096
+                patch = rng.integers(0, 256, 4096, dtype=np.uint8)
+                data[off:off + 4096] = patch
+                img.write(off, patch.tobytes())
+            at_snap = data.copy()
+            img.snap_create("s1")
+            for _ in range(4):
+                off = int(rng.integers(0, (32 << 20) // 4096 - 16)) * 4096
+                patch = rng.integers(0, 256, 65536, dtype=np.uint8)
+                data[off:off + 65536] = patch
+                img.write(off, patch.tobytes())
+            img.close()
+            rbd("export", "vol", tmp_path / "head")
+            rbd("export-diff", "vol@s1", tmp_path / "s1.diff")
+            rbd("create", "copy", "--size", 32 << 20)
+            rbd("import-diff", tmp_path / "s1.diff", "copy")
+            rbd("export", "copy", tmp_path / "copy")
+            torch.cuda.synchronize()
+            n = bs.launch_counts()
+        assert (tmp_path / "head").read_bytes() == data.tobytes()
+        assert (tmp_path / "copy").read_bytes() == at_snap.tobytes()
+        assert n["fused_hier_acc_call"] > 0 and n["gf_bitmatmul"] > 0, n
+    finally:
+        ECLaunchQueue.reset_host()
+        DeviceProfiler.reset_host()
