@@ -30,9 +30,16 @@ Layer map:
   osdc/     the objecter; rados/ the RADOS client and the striper
   rbd/      RBD images: snapshots, clones, diffs, exclusive lock,
             object map, journal
+  fs/       CephFS: the MDS (namespace, caps, snapshots, mdlog, subtree
+            export) and the client that writes file blocks to the data
+            pool
+  mgr/      the manager and its modules (health, balancer,
+            pg_autoscaler, telemetry, devicehealth, progress,
+            rgw_reshard, dashboard)
   store/    ObjectStore contract + MemStore, the in-memory kv store
   tools/    ec_benchmark, the kernel sweeps, the vstart dev cluster,
-            crushtool and the rados and rbd CLIs
+            crushtool, the ceph, rados and rbd CLIs, the metrics
+            exporter, cluster_bench and its latency recorder
   csrc/     CUDA C++ kernels (sm_90a)
 
 Entry points run on the card unless the caller asks for the CPU

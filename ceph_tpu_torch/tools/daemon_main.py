@@ -15,8 +15,8 @@ Each daemon runs its EC codecs on `--device` (the card, "cuda", by
 default; "cpu" runs the kernels' plain versions).  The daemon selects
 its card before it builds a codec; a CUDA request without a GPU exits
 non-zero at boot.  `--asok PATH` serves the daemon's admin socket.  The
-`mds` and `rgw` roles need services that are not ported (fs, rgw): they
-exit with an error naming them.
+`mds` role runs no codec and takes no `--device`.  The `rgw` role needs
+a service that is not ported (rgw): it exits with an error naming it.
 
 Prints one "READY <addr>" line on stdout once serving, then runs until
 SIGTERM/SIGKILL.
@@ -29,8 +29,7 @@ import signal
 import sys
 import time
 
-NOT_PORTED_ROLES = {"mds": "fs (the MDS and CephFS client)",
-                    "rgw": "rgw (the S3 gateway)"}
+NOT_PORTED_ROLES = {"rgw": "rgw (the S3 gateway)"}
 
 
 def _parse_addr(s: str) -> tuple[str, int]:
@@ -113,6 +112,15 @@ def run_osd(args) -> int:
     return 0
 
 
+def run_mds(args) -> int:
+    from ..fs.mds import MDSDaemon
+    mons = [_parse_addr(a) for a in args.mon.split(",")]
+    mds = MDSDaemon(mons, name=args.name)
+    print(f"READY {mds.addr[0]}:{mds.addr[1]}", flush=True)
+    _serve_forever(mds.shutdown)
+    return 0
+
+
 def run_not_ported(args) -> int:
     print(f"daemon_main: the {args.role} role needs "
           f"{NOT_PORTED_ROLES[args.role]}, which is not ported to "
@@ -172,7 +180,7 @@ def main(argv=None) -> int:
     gp.add_argument("--port", type=int, default=0)
 
     args = ap.parse_args(argv)
-    return {"mon": run_mon, "osd": run_osd, "mds": run_not_ported,
+    return {"mon": run_mon, "osd": run_osd, "mds": run_mds,
             "rgw": run_not_ported}[args.role](args)
 
 

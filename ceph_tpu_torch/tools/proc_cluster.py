@@ -13,12 +13,13 @@ one host).  What this buys over the thread topology:
   * serialization is load-bearing: every byte between daemons crosses
     a socket; nothing can lean on sharing objects in memory
 
-Every daemon runs `python -m ceph_tpu_torch.tools.daemon_main` with
-the cluster's `device` (the card by default; "cpu" for the plain
-versions), writes its stderr to `<data_dir>/<name>.log` (a daemon that
-dies at boot shows that log's tail in the error) and, with `asok_dir`,
-serves its admin socket at `<asok_dir>/<name>.asok` as vstart.Cluster's
-daemons do.
+Every daemon runs `python -m ceph_tpu_torch.tools.daemon_main` and
+writes its stderr to `<data_dir>/<name>.log` (a daemon that dies at
+boot shows that log's tail in the error).  The mons and OSDs run their
+codecs on the cluster's `device` (the card by default; "cpu" for the
+plain versions) and, with `asok_dir`, serve their admin sockets at
+`<asok_dir>/<name>.asok` as vstart.Cluster's daemons do; an MDS
+(`spawn_mds`) runs no codec.
 
 Library use:
     with ProcCluster(n_osds=4, objectstore="bluestore",
@@ -29,6 +30,7 @@ Library use:
         c.revive_osd(2)        # respawn on the surviving store
         c.kill_all()           # SIGKILL every daemon (a power loss)
         c.restart_all()        # the mon and every OSD from their dirs
+        c.spawn_mds("a")       # a CephFS metadata server
 """
 
 from __future__ import annotations
@@ -153,6 +155,7 @@ class ProcCluster:
         self.mon_addrs = [("127.0.0.1", p) for p in self.mon_ports]
         self.mon_procs: list[subprocess.Popen] = []
         self.osd_procs: list[subprocess.Popen | None] = []
+        self.mds_procs: dict[str, subprocess.Popen] = {}
         # each OSD process's READY address: a restarted cluster is up
         # when the map shows these, not the dead processes' addresses
         self.osd_addrs: dict[int, tuple[str, int]] = {}
@@ -170,13 +173,16 @@ class ProcCluster:
     def asok_path(self, name: str) -> str | None:
         return f"{self.asok_dir}/{name}.asok" if self.asok_dir else None
 
-    def _spawn(self, argv: list[str], name: str) -> subprocess.Popen:
-        """Start one daemon process on the cluster's device; its stderr
-        appends to its log (a revived daemon's traceback lands after
-        the killed one's)."""
-        argv = [*argv, "--device", self.device]
-        if self.asok_dir:
-            argv += ["--asok", self.asok_path(name)]
+    def _spawn(self, argv: list[str], name: str,
+               codec: bool = True) -> subprocess.Popen:
+        """Start one daemon process; a daemon that runs codecs (`codec`:
+        a mon or an OSD) runs them on the cluster's device and serves
+        its admin socket.  Its stderr appends to its log (a revived
+        daemon's traceback lands after the killed one's)."""
+        if codec:
+            argv = [*argv, "--device", self.device]
+            if self.asok_dir:
+                argv += ["--asok", self.asok_path(name)]
         env = dict(os.environ)
         env["PYTHONPATH"] = os.pathsep.join(
             p for p in (_ROOT, env.get("PYTHONPATH")) if p)
@@ -267,9 +273,23 @@ class ProcCluster:
             "ceph_tpu_torch")
 
     def spawn_mds(self, name: str = "a") -> tuple[str, int]:
-        raise NotImplementedError(
-            "spawn_mds: fs (the MDS and CephFS client) is not ported to "
-            "ceph_tpu_torch")
+        """Start an MDS process (it runs no codec) and return its
+        address once it serves."""
+        p = self._spawn([
+            "mds", "--name", name, "--mon",
+            ",".join(f"{h}:{p}" for h, p in self.mon_addrs)],
+            f"mds.{name}", codec=False)
+        self.mds_procs[name] = p
+        addr = self._wait_ready(p, f"mds.{name}")
+        host, _, port = addr.rpartition(":")
+        return host, int(port)
+
+    def kill_mds(self, name: str = "a") -> None:
+        """SIGKILL the MDS `name`; spawn_mds(name) starts it again and
+        it replays its own mdlog."""
+        p = self.mds_procs.pop(name)
+        p.kill()
+        p.wait()
 
     # -- cluster surface (vstart.Cluster-compatible subset) -----------------
 
@@ -403,8 +423,9 @@ class ProcCluster:
                 c.shutdown()
             except Exception:  # noqa: BLE001
                 pass
-        procs = [p for p in self.osd_procs if p is not None] + \
-            self.mon_procs
+        procs = [*self.mds_procs.values(),
+                 *(p for p in self.osd_procs if p is not None),
+                 *self.mon_procs]
         for p in procs:
             p.terminate()
         for p in procs:

@@ -237,7 +237,42 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    only kernels the rows held.  Each step's wall, bytes and GB/s, `rbd
    bench`'s own MB/s and the launches by kernel are printed with the
    card's name and power limit.
-16. A/B (phase F): the native CPU library must have built; then
+16. The file service and the cluster tools (phase O): a process cluster
+   of its own laid out as phase M's (a mon and 12 OSD processes on
+   BlueStore, the library from the run's cache dir with 0 builds,
+   prewarm on, heartbeats off), a CephFS whose data pool `cephfs_data`
+   is torch k=8 m=3 (K3 pinned), 16 PGs, made before the MDS boots, at
+   CephFS's default file layout (4 MiB blocks: the MDS's block_size),
+   one MDS process (tools/daemon_main mds through
+   ProcCluster.spawn_mds), and a mgr in the parent with the default
+   modules and the dashboard, started before any file data: the
+   balancer's moves must settle (at most 60 s).  A CephFS client in the
+   parent (`fs_sequence`): /vol/d0-d3, 16 files of 16 MiB (64 whole
+   blocks, K3) and 64 of 64 KiB; 16 overwrites of 64 KiB at 4 KiB
+   aligned offsets (read-modify-writes, K1 encodes); a truncate to an
+   unaligned size, a directory rename, 8 unlinks whose data objects
+   must be purged; a snapshot of /vol and 16 overwrites under it (its
+   view must keep the older bytes); a second client reads every
+   directory and file; the OSD of data shard 1 of the first file's
+   first block SIGKILLed and marked down (`ceph_cli health` must report
+   HEALTH_WARN with PG_DEGRADED, the mgr's health module HEALTH_WARN),
+   every big file read degraded (K1 decodes), the OSD revived to
+   active+clean (`ceph_cli progress` must show the recovery at 1.0),
+   read again; the MDS SIGKILLed and spawned again under its name, a
+   fresh client seeing the namespace, every file and the snapshot.
+   Then the tools against the cluster: `ceph_cli status`, `osd tree`,
+   `pg stat`, `ceph_cli daemon` osd.0's `launch profile` (equal to
+   its admin socket's), metrics_exporter.collect (every daemon up, the
+   launch-latency gauges), the dashboard's /api/health (the mgr's
+   status).  Then tools/cluster_bench --quick --mesh at 4 MiB for 5 s a
+   row on the card (thread topology, 12 OSDs on MemStore): every row
+   must write and read, the mesh row must name its mesh and launch K1.
+   Every read must equal the bytes written; K3 and K1 must have
+   launched in the daemons, and only kernels the rows held (cluster_
+   bench's too).  Each step's wall, bytes, GB/s or op/s, the tools'
+   waits, cluster_bench's rows and the launches by kernel are printed
+   with the card's name and power limit.
+17. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
@@ -245,11 +280,11 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
 its own phase, in the recovery storm, in phase K, in phase L and in
-phase M's and phase N's daemons), the
+phase M's, phase N's and phase O's daemons), the
 main paths', the benchmark's, the w32 sweep's, the CLAY repair's, the
 recovery storm's, the deep scrub's, the boot's, the mesh's, the
-cluster's, the process cluster's, the block service's and the A/B's
-lines,
+cluster's, the process cluster's, the block service's, the A/B's and
+the file service's (with cluster_bench's rows) lines,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
@@ -2611,6 +2646,23 @@ def dir_bytes(path) -> int:
     return total
 
 
+def kill_shard_holder(c, io, oid: str) -> int:
+    """SIGKILL the OSD that holds data shard 1 of `oid` in `io`'s pool,
+    mark it down, and wait until the client's map shows it down.
+    Returns the OSD."""
+    objecter = io.client.objecter
+    pgid = objecter._calc_target(io.pool_id, oid)[0].pgid
+    victim = objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+    c.kill_osd(victim)
+    c.mark_osd_down(victim)
+    deadline = time.time() + 30
+    while objecter.osdmap.is_up(victim):
+        if time.time() > deadline:
+            raise AssertionError("the client never saw the down map")
+        objecter.refresh_map(timeout=2.0)
+    return victim
+
+
 class ProcDaemons:
     """The OSD daemons of a process cluster, read through their admin
     sockets: `boot_check` after a daemon's boot, `read_launches` after
@@ -2760,17 +2812,8 @@ def proc_cluster_run(device: str, root, cache_dir) -> dict:
              for r in rmw], PROC_DEPTH), N_PROC_RMW * PROC_RMW_LEN)
 
         # SIGKILL an OSD holding a data shard of the first overwrite
-        pgid = cl.objecter._calc_target(io.pool_id, rmw[0][0])[0].pgid
-        victim = cl.objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
-        report["victim"] = victim
         t_kill = time.perf_counter()
-        c.kill_osd(victim)
-        c.mark_osd_down(victim)
-        deadline = time.time() + 30
-        while cl.objecter.osdmap.is_up(victim):
-            if time.time() > deadline:
-                raise AssertionError("the client never saw the down map")
-            cl.objecter.refresh_map(timeout=2.0)
+        victim = report["victim"] = kill_shard_holder(c, io, rmw[0][0])
         step("write_down", lambda: write(down_expect),
              N_PROC_DOWN_OBJECTS * PROC_OBJECT)
         expect.update(down_expect)
@@ -3050,18 +3093,8 @@ def rbd_sequence(io, cli, rbd_mod, striper_cls, c, revived, root: Path,
         "get", "striped.0000000000000000", str(root / "piece0")]), os_)
     check_bytes(root / "piece0", blob[:os_], "rados get of piece 0")
     # 7. the OSD of data shard 1 of vol0's first object down, then back
-    objecter = io.client.objecter
-    pgid = objecter._calc_target(io.pool_id,
-                                 "rbd_data.vol0.0000000000000000")[0].pgid
-    victim = objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
-    out["victim"] = victim
-    c.kill_osd(victim)
-    c.mark_osd_down(victim)
-    deadline = time.time() + 30
-    while objecter.osdmap.is_up(victim):
-        if time.time() > deadline:
-            raise AssertionError("the client never saw the down map")
-        objecter.refresh_map(timeout=2.0)
+    victim = out["victim"] = kill_shard_holder(
+        c, io, "rbd_data.vol0.0000000000000000")
     export("vol0", vol0, "export_degraded")
 
     def revive():
@@ -3153,6 +3186,423 @@ def phase_block_service(tmp) -> tuple[dict, dict]:
     return total, res
 
 
+# Phase O: the file service and the cluster tools.  CephFS on an
+# erasure-coded data pool (Ceph's doc/cephfs/createfs.rst, "Using Erasure
+# Coded pools with CephFS") at the default file layout
+# (doc/cephfs/file-layouts.rst: stripe unit 4 MiB, stripe count 1, object
+# size 4 MiB, which is the MDS's default block_size): `cephfs_data` of
+# torch k=8 m=3 (K3 pinned), 16 PGs, made before the MDS boots, which
+# keeps it; `cephfs_metadata` replicated, made by the MDS.  A process
+# cluster of its own laid out as phase M's, one MDS process, a mgr in
+# the parent with the default modules and the dashboard (Octopus runs
+# the balancer in upmap mode by default).
+N_FS_OSDS = 12
+FS_POOL = ("cephfs_data", PROC_POOL[1], 16)
+FS_SIZES = {
+    "dirs": 4,                     # /vol/d0 ... /vol/d3
+    "big": (16, 16 << 20),         # files, bytes each: 4 blocks of 4 MiB
+    "small": (64, 64 << 10),
+    "overwrites": (16, 64 << 10),  # each round, at 4 KiB aligned offsets
+    "unlinks": 8,
+}
+FS_BALANCE_WAIT_S = 60.0
+FS_HEALTH_WAIT_S = 30.0
+FS_PROGRESS_WAIT_S = 60.0
+FS_TOOL_TIMEOUT_S = 600.0
+# cluster_bench's thread topology (its default: 12 OSDs on MemStore) on
+# the card, the quick matrix and the mesh row over every visible card
+FS_BENCH_ARGV = ["--quick", "--mesh", "--size", str(4 << 20),
+                 "--seconds", "5"]
+
+
+def fs_namespace(fs, path="/") -> dict:
+    """{path: (size, mode)} of every entry under `path`, walked through
+    readdir (times left out)."""
+    out = {}
+    for name, ent in fs.readdir(path):
+        p = f"{path.rstrip('/')}/{name}"
+        out[p] = (ent.get("size", 0), ent["mode"])
+        if ent["mode"] & 0o040000:
+            out.update(fs_namespace(fs, p))
+    return out
+
+
+def fs_sequence(fs, mount, c, revived, restart_mds, sizes: dict, step,
+                check=check_bytes, degraded=None, recovered=None) -> dict:
+    """Phase O's file traffic on one cluster: directories, whole-block
+    file writes and small files, 4 KiB aligned overwrites (read-modify-
+    writes), a truncate to an unaligned size, a directory rename,
+    unlinks whose data objects must be purged, a snapshot with more
+    overwrites under it, a second client reading everything, the OSD of
+    data shard 1 of the first file's first block down for degraded
+    reads and back to active+clean, and an MDS restart after which a
+    fresh client must see the same namespace, files and snapshot.
+
+    `fs` is a mounted CephFS client and `mount(addr=None)` mounts
+    another (on the MDS at `addr` when given); `c` is the cluster
+    (kill_osd, mark_osd_down, revive_osd, wait_active_clean);
+    `revived(osd)` runs after the revive; `restart_mds()` kills the MDS,
+    starts it again under its name and returns its address; `degraded()`
+    runs while the OSD is down and `recovered()` after active+clean;
+    `step(label, fn, nbytes, ops)` times each step; `check(got, want,
+    what)` holds a read to the bytes written.  Returns the namespace,
+    the sha256 of every file and snapshot view as the fresh client read
+    it, the overwrites ((path, offset, length), paths as they end) and
+    the victim."""
+    import hashlib
+    data_oid = sys.modules[type(fs).__module__].data_oid
+    rng = np.random.default_rng(SEED + 15)
+    n_dirs = sizes["dirs"]
+    n_big, big = sizes["big"]
+    n_small, small = sizes["small"]
+    n_ow, ow_len = sizes["overwrites"]
+    dirs = [f"/vol/d{i}" for i in range(n_dirs)]
+    want = {}                      # path -> the bytes expected
+    bigs = [f"{dirs[i % n_dirs]}/big{i}" for i in range(n_big)]
+    smalls = [f"{dirs[i % n_dirs]}/small{i}" for i in range(n_small)]
+    out = {"overwrites": [], "sha256": {}}
+
+    def read_all(client, expect, what, digest=None):
+        for p in sorted(expect):
+            got = client.read_file(p)
+            check(got, expect[p], f"{what}: {p}")
+            if digest is not None:
+                digest[p] = hashlib.sha256(got).hexdigest()
+
+    def overwrite(label):
+        patches = []
+        for _ in range(n_ow):
+            p = bigs[int(rng.integers(0, n_big))]
+            size = want[p].size
+            off = int(rng.integers(0, (size - ow_len) // 4096 + 1)) * 4096
+            patch = rng.integers(0, 256, ow_len, dtype=np.uint8)
+            want[p][off:off + ow_len] = patch
+            patches.append((p, off, patch))
+
+        def run():
+            for p, off, patch in patches:
+                with fs.open(p, "r+") as f:
+                    f.pwrite(patch.tobytes(), off)
+        step(label, run, n_ow * ow_len, n_ow)
+        out["overwrites"] += [(p, off, ow_len) for p, off, _ in patches]
+
+    def rename_dir(old, new):
+        fs.rename(old, new)
+        for paths in (bigs, smalls):
+            paths[:] = [new + p[len(old):] if p.startswith(old + "/")
+                        else p for p in paths]
+        for p in [p for p in want if p.startswith(old + "/")]:
+            want[new + p[len(old):]] = want.pop(p)
+        out["overwrites"] = [(new + p[len(old):] if p.startswith(old + "/")
+                              else p, o, n) for p, o, n in out["overwrites"]]
+
+    # 2. directories, whole-block files (K3), small files
+    step("makedirs", lambda: [fs.makedirs(d) for d in dirs], 0, n_dirs)
+    for p in bigs:
+        want[p] = rng.integers(0, 256, big, dtype=np.uint8)
+    step("write_big", lambda: [fs.write_file(p, want[p].tobytes())
+                               for p in bigs], n_big * big, n_big)
+    for p in smalls:
+        want[p] = rng.integers(0, 256, small, dtype=np.uint8)
+    step("write_small", lambda: [fs.write_file(p, want[p].tobytes())
+                                 for p in smalls], n_small * small, n_small)
+    # 3. overwrites (read-modify-writes: K1 encodes), a truncate, a
+    # rename, unlinks whose data objects are purged
+    overwrite("overwrite")
+    cut = bigs[1]
+    size = want[cut].size * 3 // 4 - 777
+
+    def truncate():
+        with fs.open(cut, "r+") as f:
+            f.truncate(size)
+    step("truncate", truncate, 0, 1)
+    want[cut] = want[cut][:size]
+    step("rename", lambda: rename_dir(dirs[-1], dirs[-1] + "r"), 0, 1)
+    dirs[-1] += "r"
+    gone = [smalls[int(i)] for i in sorted(rng.choice(
+        n_small, sizes["unlinks"], replace=False))]
+    inos = [fs.stat(p)["ino"] for p in gone]
+    step("unlink", lambda: [fs.unlink(p) for p in gone], 0, len(gone))
+    for p, ino in zip(gone, inos):
+        want.pop(p)
+        smalls.remove(p)
+        try:
+            fs.data.read(data_oid(ino, 0), 1)
+        except Exception as e:  # noqa: BLE001 - the package's RadosError
+            if getattr(e, "errno", None) != 2:
+                raise
+        else:
+            raise AssertionError(f"unlink left {p}'s data object")
+    # 4. a snapshot, then overwrites under it (copy-on-write clones)
+    step("snap_create", lambda: fs.snap_create("/vol", "s1"), 0, 1)
+    snap = {"/vol/.snap/s1" + p[len("/vol"):]: v.copy()
+            for p, v in want.items()}
+    overwrite("overwrite_snap")
+    step("read_snap", lambda: read_all(fs, snap, "snapshot view"),
+         sum(v.size for v in snap.values()), len(snap))
+    # 5. a second client: every directory and every file
+    fs2 = mount()
+    names = {}
+    step("readdir", lambda: names.update(
+        (d, sorted(n for n, _ in fs2.readdir(d))) for d in ["/vol", *dirs]),
+        0, n_dirs + 1)
+    if names["/vol"] != sorted(d.rsplit("/", 1)[1] for d in dirs):
+        raise AssertionError(f"/vol lists {names['/vol']}")
+    for d in dirs:
+        listed = [f"{d}/{n}" for n in names[d]]
+        if listed != sorted(p for p in want if p.startswith(d + "/")):
+            raise AssertionError(f"{d} lists {names[d]}")
+    step("read_second_client", lambda: read_all(fs2, want, "second client"),
+         sum(v.size for v in want.values()), len(want))
+    ns = fs_namespace(fs2)
+    # 6. the OSD of data shard 1 of the first file's first block down
+    victim = out["victim"] = kill_shard_holder(
+        c, fs.data, data_oid(fs.stat(bigs[0])["ino"], 0))
+    if degraded is not None:
+        degraded()
+    big_want = {p: want[p] for p in bigs}
+    big_bytes = sum(v.size for v in big_want.values())
+    step("read_degraded", lambda: read_all(fs, big_want, "degraded read"),
+         big_bytes, n_big)
+
+    def revive():
+        c.revive_osd(victim)
+        revived(victim)
+        c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+    step("revive_to_clean", revive, 0)
+    if recovered is not None:
+        recovered()
+    step("read_after_revive", lambda: read_all(fs, big_want,
+                                               "read after revive"),
+         big_bytes, n_big)
+    # 7. the MDS killed and started again: a fresh client sees it all
+    addr = {}
+    step("mds_restart", lambda: addr.update(mds=restart_mds()), 0, 1)
+    fs3 = mount(addr["mds"])
+    if fs_namespace(fs3) != ns:
+        raise AssertionError("the namespace changed across the MDS restart")
+    if fs3.snap_list("/vol") != ["s1"]:
+        raise AssertionError(f"snapshots {fs3.snap_list('/vol')}")
+    want.update(snap)
+    step("read_after_mds_restart", lambda: read_all(
+        fs3, want, "after the MDS restart", out["sha256"]),
+        sum(v.size for v in want.values()), len(want))
+    out["namespace"] = ns
+    return out
+
+
+def file_service_run(device: str, root, cache_dir) -> dict:
+    """Phase O on one process cluster over BlueStore: the mgr first (the
+    balancer's moves settle), one MDS process, fs_sequence through a
+    CephFS client in the parent with `ceph_cli health` and the mgr's
+    health while the OSD is down and `ceph_cli progress` after its
+    recovery, the tools against the cluster (`ceph_cli` and its daemon
+    mode, the metrics exporter, the dashboard), then cluster_bench in a
+    subprocess.  Each step's launches are read through the daemons'
+    `launch profile`, as phase M's are."""
+    import urllib.request
+
+    from ceph_tpu_torch.fs import CephFS
+    from ceph_tpu_torch.mgr import MgrDaemon
+    from ceph_tpu_torch.mgr.modules import (DEFAULT_MODULES,
+                                            BalancerModule, DashboardModule)
+    from ceph_tpu_torch.tools import metrics_exporter
+    from ceph_tpu_torch.tools.proc_cluster import ProcCluster
+    asok_dir = root / "asok"
+    asok_dir.mkdir(parents=True)
+    report = {"osds": N_FS_OSDS, "steps": {}, "launches": {}, "tools": {}}
+    c = ProcCluster(n_osds=N_FS_OSDS, objectstore="bluestore",
+                    data_dir=str(root / "data"), asok_dir=str(asok_dir),
+                    heartbeat_interval=0.0, prewarm=True,
+                    compile_cache_dir=str(cache_dir),
+                    boot_timeout=PROC_BOOT_TIMEOUT_S, device=device)
+    daemons = ProcDaemons(c, cache_dir)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def step(label, fn, nbytes, ops=0):
+        st = report["steps"][label] = timed(fn, nbytes)
+        if ops:
+            st.update(ops=ops, ops_s=ops / st["wall_s"])
+        report["launches"][label] = daemons.read_launches()
+
+    def tool(name, *argv):
+        proc = subprocess.run(
+            [sys.executable, "-m", f"ceph_tpu_torch.tools.{name}",
+             *map(str, argv)], capture_output=True, text=True, cwd=here,
+            timeout=FS_TOOL_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} {argv} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:]}")
+        return proc.stdout
+
+    def ceph(*words):
+        return json.loads(tool("ceph_cli", "-m", mon, *words))
+
+    def poll(what, fn, timeout):
+        t = time.perf_counter()
+        deadline = time.time() + timeout
+        while not fn():
+            if time.time() > deadline:
+                raise AssertionError(f"{what}: not within {timeout} s")
+            time.sleep(0.5)
+        report["tools"][what + "_s"] = time.perf_counter() - t
+
+    clients, mgr = [], None
+    mds_addr = {}
+
+    def mount(addr=None):
+        fs = CephFS(c.mon_addrs, addr or mds_addr["a"],
+                    name=f"fsclient{len(clients)}")
+        clients.append(fs)
+        return fs
+
+    def restart_mds():
+        c.kill_mds("a")
+        mds_addr["a"] = c.spawn_mds("a")
+        return mds_addr["a"]
+
+    def degraded():
+        def warned():
+            h = ceph("health")
+            return h.get("status") == "HEALTH_WARN" and \
+                "PG_DEGRADED" in h.get("checks", {})
+        poll("ceph_health_warn", warned, FS_HEALTH_WAIT_S)
+        poll("mgr_health_warn", lambda: mgr.health_summary()["status"] ==
+             "HEALTH_WARN" and "health" in mgr.health_summary()["checks"],
+             FS_HEALTH_WAIT_S)
+
+    def recovered():
+        def done():
+            evs = {e["id"]: e for e in ceph("progress")["events"]}
+            return evs.get("recovery", {}).get("progress") == 1.0
+        poll("progress_recovery_done", done, FS_PROGRESS_WAIT_S)
+
+    name, profile, pg_num = FS_POOL
+    t0 = time.perf_counter()
+    try:
+        c.start()
+        report["boot_s"] = time.perf_counter() - t0
+        for i in range(N_FS_OSDS):
+            daemons.boot_check(i)
+        mon = "%s:%d" % tuple(c.mon_addrs[0])
+        cl = c.client()
+        cl.set_ec_profile(name, profile)
+        cl.create_pool(name, "erasure", erasure_code_profile=name,
+                       pg_num=pg_num)
+        t = time.perf_counter()
+        mds_addr["a"] = c.spawn_mds("a")
+        report["mds_boot_s"] = time.perf_counter() - t
+        # 1. the mgr before any file data; the balancer's moves settle
+        mgr = MgrDaemon(c.mon_addrs,
+                        modules=[*DEFAULT_MODULES, DashboardModule]).start()
+        bal = next(m for m in mgr.modules if isinstance(m, BalancerModule))
+        t = time.perf_counter()
+        deadline = time.time() + FS_BALANCE_WAIT_S
+        while bal.compute_moves() and time.time() < deadline:
+            time.sleep(0.5)
+        report["balancer"] = {"moves": bal.moves,
+                              "pending": len(bal.compute_moves()),
+                              "wait_s": time.perf_counter() - t}
+        c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+        daemons.read_launches()
+        # 2-7. the file traffic
+        report.update(fs_sequence(
+            mount(), mount, c, daemons.boot_check, restart_mds, FS_SIZES,
+            step, degraded=degraded, recovered=recovered))
+        report["health"] = mgr.health_summary()
+        # 8. the tools against this cluster
+        for words in (["status"], ["osd", "tree"], ["pg", "stat"]):
+            report["tools"][" ".join(words)] = ceph(*words)
+        said = json.loads(tool("ceph_cli", "daemon",
+                               c.asok_path("osd.0"), "launch", "profile"))
+        now = daemons.asok(0, {"prefix": "launch profile"})
+        if said["kernel_launches"] != now["kernel_launches"]:
+            raise AssertionError(f"ceph daemon launch profile "
+                                 f"{said['kernel_launches']} != "
+                                 f"{now['kernel_launches']}")
+        report["tools"]["osd.0 kernel_launches"] = said["kernel_launches"]
+        text = metrics_exporter.collect(str(asok_dir))
+        for d in ["mon.0", *(f"osd.{i}" for i in range(N_FS_OSDS))]:
+            if f'ceph_tpu_daemon_up{{daemon="{d}"}} 1' not in text:
+                raise AssertionError(f"the exporter has {d} not up")
+        gauges = [ln for ln in text.splitlines()
+                  if ln.startswith("ceph_tpu_lat_launch_device_p99{")]
+        if not gauges:
+            raise AssertionError("the exporter has no launch-latency gauge")
+        report["tools"]["exporter"] = {"lines": len(text.splitlines()),
+                                       "launch_p99_gauges": len(gauges)}
+        dash = next(m for m in mgr.modules
+                    if isinstance(m, DashboardModule))
+        with urllib.request.urlopen(
+                f"http://{dash.addr[0]}:{dash.addr[1]}/api/health",
+                timeout=30) as r:
+            api = json.loads(r.read())["status"]
+        if api != mgr.health_summary()["status"]:
+            raise AssertionError(f"dashboard {api} != mgr "
+                                 f"{mgr.health_summary()}")
+        report["tools"]["dashboard_health"] = api
+    finally:
+        if mgr is not None:
+            mgr.shutdown()
+        for fs in clients:
+            fs.shutdown()
+        c.stop()
+    report["launch_totals"] = daemons.totals
+    # 9. cluster_bench on the card: the thread topology's quick matrix
+    t = time.perf_counter()
+    said = tool("cluster_bench", *FS_BENCH_ARGV, "--device", device)
+    report["cluster_bench_s"] = time.perf_counter() - t
+    rows = [json.loads(ln) for ln in said.splitlines()
+            if ln.startswith("{")]
+    bench = [r for r in rows if "write_mb_s" in r]
+    report["cluster_bench"] = rows
+    for r in bench:
+        if not (r["write_mb_s"] > 0 and (r["read_mb_s"] or 0) > 0):
+            raise AssertionError(f"cluster_bench row {r['config']}: "
+                                 f"{r['write_mb_s']} / {r['read_mb_s']}")
+    mesh = next((r for r in bench if r["config"] == "ec_k8m3_mesh"), None)
+    if mesh is None or mesh["mesh"] is None:
+        raise AssertionError(f"cluster_bench published no mesh row: "
+                             f"{[r['config'] for r in bench]}")
+    return report
+
+
+def phase_file_service(tmp) -> tuple[dict, dict]:
+    """Phase O: the file service and the cluster tools on the card, in a
+    process cluster of its own whose daemons load the library the parent
+    built.  Returns (the daemons' launch counts, the report)."""
+    from ceph_tpu_torch.ops import _build
+    root = tmp / "fs"
+    cache_dir = root / "cache"
+    cache_dir.mkdir(parents=True)
+    shutil.copy2(_build.library_path(), cache_dir)
+    res = file_service_run("cuda", root, cache_dir)
+    total = res["launch_totals"]
+    missing = [k for k in ("gf_bitmatmul", "fused_hier_acc_call")
+               if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase O missed kernels {missing}: {total}")
+    bench = [r for r in res["cluster_bench"] if "write_mb_s" in r]
+    mesh = next(r for r in bench if r["config"] == "ec_k8m3_mesh")
+    if mesh["launch_ledger"]["kernel_launches"].get("gf_bitmatmul", 0) <= 0:
+        raise AssertionError(f"cluster_bench's mesh row launched no K1: "
+                             f"{mesh['launch_ledger']}")
+    res["card"] = nvidia_smi_line()
+    print(f"# file service ({res['card']}): boot {res['boot_s']:.2f} s, "
+          f"mds {res['mds_boot_s']:.2f} s; balancer {res['balancer']}; "
+          + "; ".join(f"{k} {v['GBps']:.4f} GB/s"
+                      + (f" {v['ops_s']:.1f} op/s" if v.get("ops") else "")
+                      + f" ({v['wall_s']:.3f} s)"
+                      for k, v in res["steps"].items())
+          + f"; tools {res['tools']}; launches {total}", flush=True)
+    for r in bench:
+        print(f"# cluster_bench {r['config']}: write {r['write_mb_s']} MB/s, "
+              f"read {r['read_mb_s']} MB/s, mesh {r['mesh']}, kernel "
+              f"launches {r['launch_ledger']['kernel_launches']}",
+              flush=True)
+    return total, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3216,14 +3666,23 @@ def main() -> int:
         pin_point(tmp / "pinned_rbd.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         rbd_counts, rbd = phase_block_service(tmp)
+        pin_point(tmp / "pinned_fs.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        fs_counts, fs_report = phase_file_service(tmp)
         ab = phase_ab()
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
         shutil.rmtree(tmp, ignore_errors=True)
     held = {row["counter"] for row in rows}
+    bench_counts = {}
+    for r in fs_report["cluster_bench"]:
+        for k, n in r.get("launch_ledger", {}).get("kernel_launches",
+                                                   {}).items():
+            bench_counts[k] = bench_counts.get(k, 0) + n
     for phase, launched in (("L", cluster_counts), ("M", proc_counts),
-                            ("N", rbd_counts)):
+                            ("N", rbd_counts), ("O", fs_counts),
+                            ("O's cluster_bench", bench_counts)):
         unheld = [k for k, n in launched.items() if n and k not in held]
         if unheld:
             raise AssertionError(f"phase {phase} launched {unheld}, which "
@@ -3241,6 +3700,7 @@ def main() -> int:
             # the daemons count K2's entries, not its branches
             row["proc_cluster_launches"] = None
             row["block_service_launches"] = None
+            row["file_service_launches"] = None
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
@@ -3249,6 +3709,7 @@ def main() -> int:
         row["cluster_launches"] = cluster_counts[counter]
         row["proc_cluster_launches"] = proc_counts.get(counter, 0)
         row["block_service_launches"] = rbd_counts.get(counter, 0)
+        row["file_service_launches"] = fs_counts.get(counter, 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -3278,6 +3739,9 @@ def main() -> int:
     print(json.dumps({"proc_cluster": proc}), flush=True)
     print(json.dumps({"block_service": rbd}), flush=True)
     print(json.dumps({"ec_benchmark_ab": ab}), flush=True)
+    bench = fs_report.pop("cluster_bench")
+    print(json.dumps({"file_service": fs_report, "cluster_bench": bench}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}), flush=True)

@@ -96,9 +96,10 @@ OPTRACKER = ported("test_optracker", subs=[(
     "test_sharded_wq_marks_queue_and_dequeue",
     "test_pipeline_stage_timeline_depth2_overlap",
     "test_pipeline_failure_marks_failed_stage",
-    "test_mosdop_trace_wire_roundtrip"])
-def test_optracker_replay(case):
-    run_case(OPTRACKER, case)
+    "test_mosdop_trace_wire_roundtrip",
+    "test_exporter_daemon_up_and_scrape_errors"])
+def test_optracker_replay(case, tmp_path):
+    run_case(OPTRACKER, case, tmp_path=tmp_path)
 
 
 def test_trace_context_wire_crosses_packages():

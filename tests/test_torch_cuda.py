@@ -1040,3 +1040,73 @@ def test_rbd_on_card(cuda_device, tmp_path, monkeypatch):
     finally:
         ECLaunchQueue.reset_host()
         DeviceProfiler.reset_host()
+
+
+def test_cephfs_on_card(cuda_device, tmp_path, monkeypatch):
+    """A CephFS whose data pool is torch k=8 m=3 at the default file
+    layout (4 MiB blocks) in a cluster whose codecs run on the card, its
+    point pinned to K3: whole-block file writes (K3), a partial
+    overwrite (a read-modify-write: K1 encodes), then every file read
+    with the OSD of data shard 1 of the first block down (K1 decodes);
+    every read equals the bytes written."""
+    import json
+
+    from ceph_tpu_torch.fs import CephFS, MDSDaemon
+    from ceph_tpu_torch.fs.mds import data_oid
+    from ceph_tpu_torch.ops import autotune
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops.profiler import DeviceProfiler
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.tools.vstart import Cluster
+    point = tmp_path / "pinned.json"
+    point.write_text(json.dumps({"version": 2, "entries": {
+        autotune._device_key(cuda_device, 8, 3): {
+            **autotune.default_point(), "combine": "kernel", "gbps": 0.0,
+            "when": "pinned"}}}))
+    monkeypatch.setenv("CEPH_TPU_AUTOTUNE_CACHE", str(point))
+    ECLaunchQueue.reset_host()
+    DeviceProfiler.reset_host()
+    rng = np.random.default_rng(67)
+    files = {f"/v/f{i}": rng.integers(0, 256, (8 << 20) + 777 * i,
+                                      dtype=np.uint8) for i in range(3)}
+    try:
+        with Cluster(n_osds=12, device=str(cuda_device)) as c:
+            cl = c.client()
+            cl.set_ec_profile("fp", {"plugin": "torch", "k": "8", "m": "3",
+                                     "technique": "cauchy",
+                                     "stripe_unit": "4096"})
+            cl.create_pool("cephfs_data", "erasure",
+                           erasure_code_profile="fp", pg_num=16)
+            mds = MDSDaemon(c.mon_addrs)
+            fs = CephFS(c.mon_addrs, mds.addr)
+            try:
+                assert fs.block_size == 4 << 20
+                bs.reset_launch_counts()
+                fs.makedirs("/v")
+                for p, v in files.items():
+                    fs.write_file(p, v.tobytes())
+                wrote = bs.launch_counts()
+                off = (5 << 20) + 3 * 4096
+                patch = rng.integers(0, 256, 65536, dtype=np.uint8)
+                files["/v/f1"][off:off + patch.size] = patch
+                with fs.open("/v/f1", "r+") as f:
+                    f.pwrite(patch.tobytes(), off)
+                oid = data_oid(fs.stat("/v/f0")["ino"], 0)
+                obj = fs.data.client.objecter
+                pgid = obj._calc_target(fs.data.pool_id, oid)[0].pgid
+                victim = obj.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+                c.kill_osd(victim)
+                c.mark_osd_down(victim)
+                got = {p: fs.read_file(p) for p in files}
+                torch.cuda.synchronize()
+                n = bs.launch_counts()
+            finally:
+                fs.shutdown()
+                mds.shutdown()
+        for p, v in files.items():
+            assert got[p] == v.tobytes(), p
+        assert wrote["fused_hier_acc_call"] > 0, wrote
+        assert n["gf_bitmatmul"] > wrote["gf_bitmatmul"], n
+    finally:
+        ECLaunchQueue.reset_host()
+        DeviceProfiler.reset_host()

@@ -1,9 +1,9 @@
 """Live PG merging on a port cluster on the CPU: tests/test_pg_merge.py's
 cluster cases replayed on the port (the `pg_num` decrease and its guard,
 a replicated merge, a stale client retargeted from a dying child to its
-parent, `ok-to-stop` below min_size, drain / safe-to-destroy / rm).
-The autoscaler case waits for `mgr`; the `slow` cases stay out of
-tier 1."""
+parent, `ok-to-stop` below min_size, drain / safe-to-destroy / rm,
+the mgr's pg autoscaler shrinking a pool that opted in).  The `slow`
+cases stay out of tier 1."""
 
 import pytest
 
@@ -21,3 +21,7 @@ MERGE = ported("test_pg_merge")
     "test_drain_safe_to_destroy_rm_no_window_below_min_size"])
 def test_pg_merge_replay(case):
     run_case(MERGE, case)
+
+
+def test_autoscaler_replay():
+    run_case(MERGE, "test_autoscaler_scales_down_with_optin")

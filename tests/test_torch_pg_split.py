@@ -2,8 +2,9 @@
 cluster cases replayed on the port (the mon's `pg_num` commands and
 their validation, objects moved into child PGs and read, an EC split
 scrubbed clean, a client op in flight retargeted to its child), the EC
-case on the reference's jerasure pool and on a torch one.  The
-autoscaler case waits for `mgr`; the `slow` cases stay out of tier 1."""
+case on the reference's jerasure pool and on a torch one, and the mgr's
+pg autoscaler growing a pool that opted in; the `slow` cases stay out
+of tier 1."""
 
 import pytest
 
@@ -27,3 +28,7 @@ def test_pg_split_replay(case):
                          ids=["jerasure", "torch"])
 def test_ec_split_replay(mod):
     run_case(mod, "test_ec_split_objects_read_and_scrub_clean")
+
+
+def test_autoscaler_replay():
+    run_case(SPLIT, "test_autoscaler_acts_only_with_optin")

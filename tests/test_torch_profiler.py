@@ -2,10 +2,10 @@
 tests/test_profiler.py, replayed on the port: the launch ring, the
 disabled fast path through a real backend, compile attribution and the
 storm window, trace stitching through the launch queue, the heartbeat
-tick-lag detector and the mon's COMPILE_STORM check.  Its backends run
-the torch plugin on the CPU where the reference's run the jax plugin.
-Its exporter case waits for `tools/metrics_exporter`, and its asok
-round-trip case for `tools/ceph_cli` and `tools/load_harness`."""
+tick-lag detector, the mon's COMPILE_STORM check and the exporter's
+launch-latency gauges.  Its backends run the torch plugin on the CPU
+where the reference's run the jax plugin.  Its asok round-trip case
+waits for `tools/load_harness`."""
 
 import pytest
 
@@ -38,6 +38,7 @@ PROFILER = ported("test_profiler", subs=[
     "test_injected_stall_feeds_storm_window",
     "test_trace_stitching_depth2_pipelined_batch",
     "test_hb_tick_lag_detector_with_injected_stall",
-    "test_hb_tick_lag_unit", "test_compile_storm_health_check"])
+    "test_hb_tick_lag_unit", "test_compile_storm_health_check",
+    "test_exporter_emits_lat_launch_percentile_gauges"])
 def test_profiler_replay(case, tmp_path):
     run_case(PROFILER, case, tmp_path=tmp_path)
