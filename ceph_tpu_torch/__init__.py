@@ -33,6 +33,10 @@ Layer map:
   fs/       CephFS: the MDS (namespace, caps, snapshots, mdlog, subtree
             export) and the client that writes file blocks to the data
             pool
+  rgw/      the object gateway: S3 and Swift over one store, SigV4,
+            ACLs and bucket policies, the sharded bucket index and
+            resharding, versioning, multipart, lifecycle,
+            notifications and multisite sync
   mgr/      the manager and its modules (health, balancer,
             pg_autoscaler, telemetry, devicehealth, progress,
             rgw_reshard, dashboard)

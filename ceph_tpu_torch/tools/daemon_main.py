@@ -15,8 +15,8 @@ Each daemon runs its EC codecs on `--device` (the card, "cuda", by
 default; "cpu" runs the kernels' plain versions).  The daemon selects
 its card before it builds a codec; a CUDA request without a GPU exits
 non-zero at boot.  `--asok PATH` serves the daemon's admin socket.  The
-`mds` role runs no codec and takes no `--device`.  The `rgw` role needs
-a service that is not ported (rgw): it exits with an error naming it.
+`mds` and `rgw` roles run no codec and take no `--device`: the OSDs
+encode what an S3 gateway writes.
 
 Prints one "READY <addr>" line on stdout once serving, then runs until
 SIGTERM/SIGKILL.
@@ -28,9 +28,6 @@ import argparse
 import signal
 import sys
 import time
-
-NOT_PORTED_ROLES = {"rgw": "rgw (the S3 gateway)"}
-
 
 def _parse_addr(s: str) -> tuple[str, int]:
     host, _, port = s.rpartition(":")
@@ -121,11 +118,15 @@ def run_mds(args) -> int:
     return 0
 
 
-def run_not_ported(args) -> int:
-    print(f"daemon_main: the {args.role} role needs "
-          f"{NOT_PORTED_ROLES[args.role]}, which is not ported to "
-          f"ceph_tpu_torch", file=sys.stderr, flush=True)
-    return 2
+def run_rgw(args) -> int:
+    from ..rados import RadosClient
+    from ..rgw import S3Gateway
+    mons = [_parse_addr(a) for a in args.mon.split(",")]
+    client = RadosClient(mons).connect()
+    gw = S3Gateway(client, addr=("127.0.0.1", args.port))
+    print(f"READY {gw.addr[0]}:{gw.addr[1]}", flush=True)
+    _serve_forever(gw.shutdown)
+    return 0
 
 
 def _serve_forever(on_term) -> None:
@@ -181,7 +182,7 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     return {"mon": run_mon, "osd": run_osd, "mds": run_mds,
-            "rgw": run_not_ported}[args.role](args)
+            "rgw": run_rgw}[args.role](args)
 
 
 if __name__ == "__main__":

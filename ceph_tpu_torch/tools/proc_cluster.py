@@ -19,7 +19,7 @@ boot shows that log's tail in the error).  The mons and OSDs run their
 codecs on the cluster's `device` (the card by default; "cpu" for the
 plain versions) and, with `asok_dir`, serve their admin sockets at
 `<asok_dir>/<name>.asok` as vstart.Cluster's daemons do; an MDS
-(`spawn_mds`) runs no codec.
+(`spawn_mds`) and an S3 gateway (`spawn_rgw`) run no codec.
 
 Library use:
     with ProcCluster(n_osds=4, objectstore="bluestore",
@@ -31,6 +31,7 @@ Library use:
         c.kill_all()           # SIGKILL every daemon (a power loss)
         c.restart_all()        # the mon and every OSD from their dirs
         c.spawn_mds("a")       # a CephFS metadata server
+        c.spawn_rgw()          # an S3 gateway: (host, port)
 """
 
 from __future__ import annotations
@@ -156,6 +157,7 @@ class ProcCluster:
         self.mon_procs: list[subprocess.Popen] = []
         self.osd_procs: list[subprocess.Popen | None] = []
         self.mds_procs: dict[str, subprocess.Popen] = {}
+        self.rgw_procs: list[subprocess.Popen] = []
         # each OSD process's READY address: a restarted cluster is up
         # when the map shows these, not the dead processes' addresses
         self.osd_addrs: dict[int, tuple[str, int]] = {}
@@ -268,9 +270,16 @@ class ProcCluster:
         self.osd_conf.setdefault(osd_id, {})[key] = value
 
     def spawn_rgw(self) -> tuple[str, int]:
-        raise NotImplementedError(
-            "spawn_rgw: rgw (the S3 gateway) is not ported to "
-            "ceph_tpu_torch")
+        """Start an S3 gateway process (it runs no codec) and return
+        its address once it serves; stop() ends it."""
+        p = self._spawn([
+            "rgw", "--mon",
+            ",".join(f"{h}:{p}" for h, p in self.mon_addrs)],
+            "rgw", codec=False)
+        self.rgw_procs.append(p)
+        addr = self._wait_ready(p, "rgw")
+        host, _, port = addr.rpartition(":")
+        return host, int(port)
 
     def spawn_mds(self, name: str = "a") -> tuple[str, int]:
         """Start an MDS process (it runs no codec) and return its
@@ -423,7 +432,7 @@ class ProcCluster:
                 c.shutdown()
             except Exception:  # noqa: BLE001
                 pass
-        procs = [*self.mds_procs.values(),
+        procs = [*self.rgw_procs, *self.mds_procs.values(),
                  *(p for p in self.osd_procs if p is not None),
                  *self.mon_procs]
         for p in procs:

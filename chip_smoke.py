@@ -272,19 +272,53 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    bench's too).  Each step's wall, bytes, GB/s or op/s, the tools'
    waits, cluster_bench's rows and the launches by kernel are printed
    with the card's name and power limit.
-17. A/B (phase F): the native CPU library must have built; then
+17. The object service (phase P): a process cluster of its own laid
+   out as phase M's, RGW with `.rgw.data` of torch k=8 m=3 (K3 pinned),
+   16 PGs, made before any gateway starts, and `.rgw.meta` replicated;
+   the gateway a process (`python -m ceph_tpu_torch.rgw.gateway --port
+   0 --ec-profile rgw_k8m3` with SigV4 credentials), a second zone an
+   in-process cluster of 12 OSDs on the card with its own torch k=8 m=3
+   `.rgw.data` (`object_sequence`, through an S3 client signing with
+   the port's sigv4): buckets b0-b3, 64 objects of 4 MiB PUT from 8
+   client threads (K3; each ETag the body's md5), 64 of 64 KiB (K2
+   flat), two multipart uploads of 4 x 5 MiB parts (the ETag's
+   md5-of-md5s form, a whole GET, a ranged read of a part) and a
+   server-side copy; versioning on b1 (two versions read back by id, a
+   delete marker, GET 404, the versions still readable); a lifecycle
+   rule expiring tmp/ on b2, swept by a store in the parent two days
+   on (objects and data objects gone); every bucket listed with a
+   delimiter and flat in pages of 7, b3 resharded 1 -> 8 index shards
+   and listed again through the gateway and a store in the parent;
+   Swift (a token, a container, a 4 MiB object read through S3, an S3
+   object through Swift); the OSD of data shard 1 of the first object
+   SIGKILLed, every 4 MiB and multipart object read from 8 threads (K1
+   decodes), revived to active+clean, read again; the gateway
+   SIGKILLed and started again, every bucket, listing, version and
+   object read back; a store with a mod-log in the parent: a topic to a
+   local HTTP receiver bound on a new bucket n0, a full sync to the
+   second zone, 8 x 4 MiB into n0, an incremental sync, every event
+   received and the zones equal.  Then the `rgw` role of daemon_main
+   (ProcCluster.spawn_rgw) serves a bucket, an object and a GET.  K3,
+   K2 flat and K1 must have launched in the daemons and K3 in the
+   second zone, only kernels the rows held; a 5xx answer or a gateway
+   exit fails the phase.  Each step's wall, bytes, GB/s or op/s and the
+   launches by kernel (daemons and second zone) are printed with the
+   card's name and power limit.
+18. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
 
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
-its own phase, in the recovery storm, in phase K, in phase L and in
-phase M's, phase N's and phase O's daemons), the
+its own phase, in the recovery storm, in phase K, in phase L, in
+phase M's, phase N's and phase O's daemons and in phase P's daemons
+and second zone), the
 main paths', the benchmark's, the w32 sweep's, the CLAY repair's, the
 recovery storm's, the deep scrub's, the boot's, the mesh's, the
 cluster's, the process cluster's, the block service's, the A/B's and
-the file service's (with cluster_bench's rows) lines,
+the file service's (with cluster_bench's rows) and the object
+service's lines,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
@@ -301,6 +335,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -3603,6 +3638,760 @@ def phase_file_service(tmp) -> tuple[dict, dict]:
     return total, res
 
 
+# Phase P: the object service.  RGW with an erasure-coded data pool and
+# a replicated index pool (Ceph's doc/radosgw/pools.rst and
+# doc/rados/operations/erasure-code.rst) at Octopus's RGW defaults in
+# src/common/options.cc: objects up to rgw_max_chunk_size /
+# rgw_obj_stripe_size (4 MiB) in one RADOS object, multipart parts of
+# rgw_multipart_min_part_size (5 MiB).  `.rgw.data` of torch k=8 m=3 (K3
+# pinned), 16 PGs, made before any gateway starts, which keeps it;
+# `.rgw.meta` replicated, made by the gateway.  A process cluster of its
+# own laid out as phase M's, the gateway a process of its own (the
+# `radosgw` entry point with SigV4 on), and a second zone, an in-process
+# cluster on the card, that syncs from it.
+N_RGW_OSDS = 12
+RGW_POOL = ("rgw_k8m3", PROC_POOL[1], 16)
+RGW_ZONE_B_OSDS = 12
+RGW_ACCESS, RGW_SECRET = "chipsmoke", "chipsmoke-secret"
+RGW_SIZES = {
+    "buckets": 4,                  # b0 ... b3
+    "big": (64, 4 << 20),          # objects, bytes each: one RADOS object
+    "threads": 8,                  # client threads of the big PUTs, GETs
+    "small": (64, 64 << 10),
+    "multipart": (2, 4, 5 << 20),  # uploads, parts each, bytes a part
+    "version": 4 << 20,            # a key PUT twice on a versioned bucket
+    "lifecycle": (8, 64 << 10),    # objects under tmp/, expired
+    "page": 7,                     # max-keys of each listing page
+    "reshard": 8,                  # b3's index shards after the reshard
+    "swift": 4 << 20,
+    "notify": (8, 4 << 20),        # objects PUT into n0, one event each
+}
+RGW_BOOT_TIMEOUT_S = 120.0
+RGW_EVENT_WAIT_S = 60.0
+DAY_S = 86400
+
+
+class S3Client:
+    """A raw-HTTP S3 client that signs every request with SigV4 through
+    the package's `sigv4` module (tests/test_rgw.py's client).  A 5xx
+    answer raises; any other status comes back with its headers and
+    body."""
+
+    def __init__(self, addr, sigv4, access=RGW_ACCESS, secret=RGW_SECRET):
+        self.host = f"{addr[0]}:{addr[1]}"
+        self.sigv4, self.access, self.secret = sigv4, access, secret
+
+    def request(self, method, path, query="", body=b"", headers=None,
+                sign=True):
+        import urllib.error
+        import urllib.request
+        headers = {"host": self.host, **(headers or {})}
+        if sign:
+            headers.update(self.sigv4.sign_request(
+                method, path, query, headers, body, self.access,
+                self.secret))
+        url = f"http://{self.host}{path}" + (f"?{query}" if query else "")
+        req = urllib.request.Request(url, data=body if body else None,
+                                     method=method, headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, dict(resp.headers), resp.read()
+        except urllib.error.HTTPError as e:
+            if e.code >= 500:
+                raise AssertionError(f"{method} {path}?{query}: the "
+                                     f"gateway answered {e.code}: "
+                                     f"{e.read()[:500]!r}") from e
+            return e.code, dict(e.headers), e.read()
+
+
+class EventReceiver:
+    """A local HTTP endpoint that records the S3 event records pushed to
+    it (a notification topic's endpoint)."""
+
+    def __init__(self):
+        import http.server
+        outer = self
+        self.records: list[dict] = []
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # noqa: A003
+                pass
+
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0))
+                outer.records += json.loads(self.rfile.read(n))["Records"]
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                     _Handler)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/events"
+        threading.Thread(target=self.httpd.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+
+
+def zone_state(store) -> dict:
+    """{bucket: {acl, owner, objects: {key: sha256 of its bytes}}} of
+    every bucket's current objects (tests/test_rgw_multisite.py's
+    _zone_state, with digests for bytes)."""
+    import hashlib
+    out = {}
+    for bucket, meta in store.list_buckets():
+        entries, _cps, _trunc, _marker = store.list_objects(
+            bucket, "", "", 100000, "", "")
+        out[bucket] = {"acl": meta.get("acl", "private"),
+                       "owner": meta.get("owner"),
+                       "objects": {k: hashlib.sha256(bytes(
+                           store.get_object(bucket, k)[0])).hexdigest()
+                           for k, _m in entries}}
+    return out
+
+
+def s3_listing(s3, bucket: str, delimiter: str, page: int) -> list:
+    """Every page of a ListObjectsV2 of `bucket` at `page` keys a page:
+    [(keys as (key, size, etag), common prefixes)]."""
+    import re
+    import urllib.parse
+    pages, token = [], ""
+    while True:
+        q = {"list-type": "2", "max-keys": str(page)}
+        if delimiter:
+            q["delimiter"] = delimiter
+        if token:
+            q["continuation-token"] = token
+        st, _, body = s3.request("GET", f"/{bucket}",
+                                 urllib.parse.urlencode(q))
+        if st != 200:
+            raise AssertionError(f"list {bucket}: {st} {body[:300]!r}")
+        text = body.decode()
+        keys = [(k, int(s), e) for k, s, e in re.findall(
+            r"<Contents><Key>([^<]*)</Key><Size>(\d+)</Size>"
+            r"<ETag>&quot;([^&]*)&quot;</ETag></Contents>", text)]
+        cps = re.findall(r"<CommonPrefixes><Prefix>([^<]*)</Prefix>", text)
+        pages.append((keys, cps))
+        m = re.search(r"<NextContinuationToken>([^<]*)<", text)
+        if "<IsTruncated>true" not in text or not m:
+            return pages
+        token = m.group(1)
+
+
+def store_listing(store, bucket: str, delimiter: str, page: int) -> list:
+    """s3_listing's pages, read through an RGWStore."""
+    pages, resume = [], ""
+    while True:
+        entries, cps, truncated, resume = store.list_objects(
+            bucket, "", "", page, delimiter, resume)
+        pages.append(([(k, m["size"], m["etag"]) for k, m in entries],
+                      list(cps)))
+        if not truncated or not resume:
+            return pages
+
+
+def expected_listing(etags: dict, bucket: str, delimiter: str) -> tuple:
+    """The keys and common prefixes a listing of `bucket` must show, from
+    {(bucket, key): (size, etag)} of its current objects."""
+    keys, cps = [], set()
+    for (b, k), (size, etag) in sorted(etags.items()):
+        if b != bucket:
+            continue
+        if delimiter and delimiter in k:
+            cps.add(k.split(delimiter, 1)[0] + delimiter)
+        else:
+            keys.append((k, size, etag))
+    return keys, sorted(cps)
+
+
+def object_sequence(addr, rgw, client, c, revived, restart_gateway,
+                    zone_b, sizes: dict, step, check=check_bytes) -> dict:
+    """Phase P's object traffic on one cluster: S3 through the gateway at
+    `addr` (SigV4 with RGW_ACCESS / RGW_SECRET): buckets b0-b3, 4 MiB
+    PUTs from client threads (ETag = md5), 64 KiB PUTs, two multipart
+    uploads and a server-side copy; versioning (two versions of a key, a
+    delete marker) and a lifecycle rule expiring tmp/ run through a store
+    in the parent with a clock two days on; every bucket listed with a
+    delimiter and in pages, b3 resharded through a store in the parent
+    and listed again through the gateway and the store; Swift on the
+    same objects; the OSD of data shard 1 of the first big object down
+    for degraded GETs and back to active+clean; the gateway killed and
+    started again; then a store in the parent with a mod-log:
+    notifications to a local receiver from a new bucket n0, a full sync
+    to the second zone, PUTs into n0 and an incremental sync, after
+    which the zones must hold the same objects.
+
+    `rgw` holds the package's `sigv4`, `store` and `sync` modules;
+    `client` is a RADOS client of the cluster `c` (kill_osd,
+    mark_osd_down, revive_osd, wait_active_clean), `revived(osd)` runs
+    after the revive, `restart_gateway()` kills the gateway, starts it
+    again and returns its address; `zone_b` is a RADOS client of the
+    second zone, whose `.rgw.data` the caller made; `step(label, fn,
+    nbytes, ops)` times each step; `check(got, want, what)` holds a read
+    to the bytes expected.  Returns what two packages must agree on:
+    every response (status, ETag), the listings, the versions, the
+    multipart manifests, the events, the zone's state, the data objects
+    and the victim."""
+    import concurrent.futures
+    import hashlib
+    import re
+    sigv4, st_mod, sync_mod = rgw.sigv4, rgw.store, rgw.sync
+    rng = np.random.default_rng(SEED + 16)
+    buckets = [f"b{i}" for i in range(sizes["buckets"])]
+    n_big, big = sizes["big"]
+    n_small, small = sizes["small"]
+    n_mp, n_parts, part = sizes["multipart"]
+    n_lc, lc_size = sizes["lifecycle"]
+    n_ev, ev_size = sizes["notify"]
+    page = sizes["page"]
+    pool = concurrent.futures.ThreadPoolExecutor(sizes["threads"])
+    s3 = [S3Client(addr, sigv4)]
+    want = {}                      # (bucket, key) -> bytes expected
+    etags = {}                     # (bucket, key) -> (size, ETag)
+    out = {"responses": [], "data_oids": []}
+    store = st_mod.RGWStore(client)
+
+    def req(method, path, query="", body=b"", headers=None, ok=200):
+        st, hd, bd = s3[0].request(method, path, query, body, headers)
+        # upload and version ids are random: recorded without them
+        out["responses"].append((method, path, re.sub(
+            r"(uploadId|versionId)=[^&]*", r"\1=*", query), st,
+            hd.get("ETag")))
+        if st != ok:
+            raise AssertionError(f"{method} {path}?{query}: {st}, want "
+                                 f"{ok}: {bd[:300]!r}")
+        return hd, bd
+
+    def put(bucket, key, data):
+        hd, _ = req("PUT", f"/{bucket}/{key}", body=data.tobytes())
+        etag = hd["ETag"].strip('"')
+        if etag != hashlib.md5(data.tobytes()).hexdigest():
+            raise AssertionError(f"PUT {bucket}/{key}: ETag {etag}")
+        want[(bucket, key)] = data
+        etags[(bucket, key)] = (data.size, etag)
+
+    def get(bucket, key, what, **kw):
+        _, body = req("GET", f"/{bucket}/{key}", **kw)
+        check(body, want[(bucket, key)], f"{what}: {bucket}/{key}")
+
+    def get_all(keys, what):
+        for f in [pool.submit(get, b, k, what) for b, k in keys]:
+            f.result()
+
+    def nbytes(keys):
+        return sum(want[k].size for k in keys)
+
+    def gone(oid):
+        try:
+            store.data.read(oid, 1)
+        except Exception as e:  # noqa: BLE001 - the package's RadosError
+            if getattr(e, "errno", None) != 2:
+                raise
+            return True
+        return False
+
+    try:
+        # 1. buckets, then 4 MiB objects from client threads (K3)
+        step("create_buckets", lambda: [req("PUT", f"/{b}")
+                                        for b in buckets], 0, len(buckets))
+        bigs = [(buckets[i % len(buckets)], f"obj{i:03d}")
+                for i in range(n_big)]
+        body = {k: rng.integers(0, 256, big, dtype=np.uint8) for k in bigs}
+        step("put_big", lambda: [f.result() for f in [
+            pool.submit(put, b, k, body[(b, k)]) for b, k in bigs]],
+            n_big * big, n_big)
+        # 2. 64 KiB objects, one at a time (K2 flat)
+        smalls = [(buckets[i % len(buckets)], f"small/s{i:03d}")
+                  for i in range(n_small)]
+        body = {k: rng.integers(0, 256, small, dtype=np.uint8)
+                for k in smalls}
+        step("put_small", lambda: [put(b, k, body[(b, k)])
+                                   for b, k in smalls],
+             n_small * small, n_small)
+        # 3. multipart uploads, then a server-side copy
+        mps = [("b0", f"mp/u{u}") for u in range(n_mp)]
+        parts = {k: [rng.integers(0, 256, part, dtype=np.uint8)
+                     for _ in range(n_parts)] for k in mps}
+
+        def multipart(bucket, key):
+            _, bd = req("POST", f"/{bucket}/{key}", "uploads")
+            uid = re.search(rb"<UploadId>([^<]+)</UploadId>",
+                            bd).group(1).decode()
+            rows = []
+            for n, p in enumerate(parts[(bucket, key)], 1):
+                hd, _ = req("PUT", f"/{bucket}/{key}",
+                            f"partNumber={n}&uploadId={uid}", p.tobytes())
+                rows.append(f"<Part><PartNumber>{n}</PartNumber><ETag>"
+                            f"{hd['ETag']}</ETag></Part>")
+            _, bd = req("POST", f"/{bucket}/{key}", f"uploadId={uid}",
+                        ("<CompleteMultipartUpload>" + "".join(rows) +
+                         "</CompleteMultipartUpload>").encode())
+            etag = re.search(rb"<ETag>&quot;([^&]+)&quot;</ETag>",
+                             bd).group(1).decode()
+            form = hashlib.md5(b"".join(
+                hashlib.md5(p.tobytes()).digest()
+                for p in parts[(bucket, key)])).hexdigest() + \
+                f"-{n_parts}"
+            if etag != form:
+                raise AssertionError(f"{bucket}/{key}: multipart ETag "
+                                     f"{etag}, want {form}")
+            want[(bucket, key)] = np.concatenate(parts[(bucket, key)])
+            etags[(bucket, key)] = (want[(bucket, key)].size, etag)
+        step("multipart", lambda: [multipart(b, k) for b, k in mps],
+             n_mp * n_parts * part, n_mp * (n_parts + 2))
+        step("get_multipart", lambda: [get(b, k, "multipart GET")
+                                       for b, k in mps], nbytes(mps), n_mp)
+        # a ranged read of the first upload's part 2 (the gateway takes
+        # no Range header): its RADOS object through the parent's store
+        man = store.head_object(*mps[0])["multipart"]
+        if [size for _n, size in man["parts"]] != [part] * n_parts:
+            raise AssertionError(f"{mps[0]}: manifest {man}")
+        got = store.data.read(st_mod._part_oid("b0", man["upload_id"], 2),
+                              part // 2, part // 4)
+        check(got, parts[mps[0]][1][part // 4:part // 4 + part // 2],
+              "ranged read of part 2")
+        src = bigs[0]
+        copy = ("b1", "copy/" + src[1])
+
+        def copy_object():
+            _, bd = req("PUT", f"/{copy[0]}/{copy[1]}", headers={
+                "x-amz-copy-source": f"/{src[0]}/{src[1]}"})
+            etag = re.search(rb"<ETag>&quot;([^&]+)&quot;</ETag>",
+                             bd).group(1).decode()
+            if etag != etags[src][1]:
+                raise AssertionError(f"copy ETag {etag}")
+            want[copy], etags[copy] = want[src], etags[src]
+        step("copy_object", copy_object, big, 1)
+        # 4. versioning on b1: a key PUT twice, then a delete marker
+        vkey = ("b1", "ver/key")
+        vbody = [rng.integers(0, 256, sizes["version"], dtype=np.uint8)
+                 for _ in range(2)]
+
+        def versions():
+            _, bd = req("GET", "/b1", "versions")
+            return [(tag, k, v, latest == "true", int(size))
+                    for tag, k, v, latest, size in re.findall(
+                        r"<(Version|DeleteMarker)><Key>([^<]*)</Key>"
+                        r"<VersionId>([^<]*)</VersionId><IsLatest>"
+                        r"(true|false)</IsLatest><Size>(\d+)</Size>",
+                        bd.decode())]
+
+        def get_versions(rows, what):
+            for (_tag, k, vid, _l, _s), data in zip(
+                    [r for r in rows if r[0] == "Version"], vbody[::-1]):
+                _, bd = req("GET", f"/b1/{k}", f"versionId={vid}")
+                check(bd, data, f"{what}: version {vid}")
+
+        def versioning():
+            req("PUT", "/b1", "versioning", b"<VersioningConfiguration>"
+                b"<Status>Enabled</Status></VersioningConfiguration>")
+            for data in vbody:
+                put(*vkey, data)
+            rows = versions()
+            if [(t, latest, size) for t, _k, _v, latest, size in rows] != \
+                    [("Version", True, vbody[1].size),
+                     ("Version", False, vbody[0].size)]:
+                raise AssertionError(f"versions {rows}")
+            get_versions(rows, "versioned GET")
+            req("DELETE", f"/b1/{vkey[1]}", ok=204)
+            req("GET", f"/b1/{vkey[1]}", ok=404)
+            want.pop(vkey)
+            etags.pop(vkey)
+            rows = versions()
+            if [(t, latest) for t, _k, _v, latest, _s in rows] != \
+                    [("DeleteMarker", True), ("Version", False),
+                     ("Version", False)]:
+                raise AssertionError(f"versions after DELETE {rows}")
+            get_versions(rows, "version under a delete marker")
+            out["versions"] = [(t, k, latest, size)
+                               for t, k, _v, latest, size in rows]
+        step("versioning", versioning, 2 * 2 * sizes["version"], 9)
+        # 4b. a lifecycle rule expiring tmp/ on b2 after a day
+        tmps = [("b2", f"tmp/t{i}") for i in range(n_lc)]
+        body = {k: rng.integers(0, 256, lc_size, dtype=np.uint8)
+                for k in tmps}
+
+        def lifecycle():
+            req("PUT", "/b2", "lifecycle", (
+                b"<LifecycleConfiguration><Rule><ID>tmp</ID>"
+                b"<Prefix>tmp/</Prefix><Status>Enabled</Status>"
+                b"<Expiration><Days>1</Days></Expiration></Rule>"
+                b"</LifecycleConfiguration>"))
+            for b, k in tmps:
+                put(b, k, body[(b, k)])
+            swept = store.lifecycle_sweep(now=time.time() + 2 * DAY_S)
+            if swept["expired"] != n_lc:
+                raise AssertionError(f"lifecycle swept {swept}")
+            for b, k in tmps:
+                req("GET", f"/{b}/{k}", ok=404)
+                if not gone(st_mod._data_oid(b, k)):
+                    raise AssertionError(f"lifecycle left {b}/{k}'s data")
+                want.pop((b, k))
+                etags.pop((b, k))
+            out["lifecycle"] = swept
+        step("lifecycle", lifecycle, n_lc * lc_size, 2 * n_lc + 1)
+        # 5. listings: with a delimiter and flat, in pages; b3 resharded
+        listings = out["listings"] = {}
+
+        def list_all(tag, reader):
+            for b in buckets:
+                for d in ("/", ""):
+                    pages = listings[(tag, b, d)] = reader(b, d, page)
+                    keys = [k for p in pages for k in p[0]]
+                    cps = [c for p in pages for c in p[1]]
+                    if (keys, cps) != expected_listing(etags, b, d):
+                        raise AssertionError(f"{tag}: {b} lists {keys}, "
+                                             f"{cps}")
+        step("list", lambda: list_all(
+            "before", lambda b, d, n: s3_listing(s3[0], b, d, n)), 0,
+            2 * len(buckets))
+        step("reshard", lambda: store.reshard_bucket(
+            "b3", sizes["reshard"]), 0, 1)
+        if store.index.read_layout("b3").shards != sizes["reshard"]:
+            raise AssertionError(f"b3: {store.reshard_status('b3')}")
+
+        def relist():
+            for tag, reader in (("gateway", lambda b, d, n: s3_listing(
+                    s3[0], b, d, n)), ("store", lambda b, d, n:
+                                       store_listing(store, b, d, n))):
+                for d in ("/", ""):
+                    pages = listings[(tag, "b3", d)] = reader("b3", d, page)
+                    flat = [[k for p in pages for k in p[0]],
+                            [c for p in pages for c in p[1]]]
+                    before = listings[("before", "b3", d)]
+                    if flat != [[k for p in before for k in p[0]],
+                                [c for p in before for c in p[1]]]:
+                        raise AssertionError(f"b3 after the reshard "
+                                             f"({tag}, {d!r}): {flat}")
+        step("list_after_reshard", relist, 0, 4)
+        # 6. Swift on the same objects
+        swift = ("sw0", "obj.bin")
+        sbody = rng.integers(0, 256, sizes["swift"], dtype=np.uint8)
+
+        def swift_io():
+            st, hd, _ = s3[0].request("GET", "/auth/v1.0", headers={
+                "X-Auth-User": RGW_ACCESS, "X-Auth-Key": RGW_SECRET},
+                sign=False)
+            out["responses"].append(("GET", "/auth/v1.0", "", st, None))
+            if st != 200:
+                raise AssertionError(f"swift auth: {st}")
+            url, tok = hd["X-Storage-Url"], {"X-Auth-Token":
+                                             hd["X-Auth-Token"]}
+            for path, data, ok in ((f"{url}/{swift[0]}", b"", 201),
+                                   (f"{url}/{swift[0]}/{swift[1]}",
+                                    sbody.tobytes(), 201)):
+                st, hd, bd = s3[0].request("PUT", path, body=data,
+                                           headers=tok, sign=False)
+                out["responses"].append(("PUT", path, "", st,
+                                         hd.get("ETag")))
+                if st != ok:
+                    raise AssertionError(f"swift PUT {path}: {st} {bd!r}")
+            want[swift] = sbody
+            etags[swift] = (sbody.size, hashlib.md5(
+                sbody.tobytes()).hexdigest())
+            get(*swift, "swift object through S3")
+            st, _, bd = s3[0].request("GET", f"{url}/{src[0]}/{src[1]}",
+                                      headers=tok, sign=False)
+            if st != 200:
+                raise AssertionError(f"swift GET: {st}")
+            check(bd, want[src], "S3 object through swift")
+        step("swift", swift_io, 2 * sizes["swift"] + big, 5)
+        # 7. the OSD of data shard 1 of the first big object down
+        whole = bigs + [copy] + mps
+        victim = out["victim"] = kill_shard_holder(
+            c, store.data, st_mod._data_oid(*bigs[0]))
+        step("get_degraded", lambda: get_all(whole, "degraded GET"),
+             nbytes(whole), len(whole))
+
+        def revive():
+            c.revive_osd(victim)
+            revived(victim)
+            c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+        step("revive_to_clean", revive, 0)
+        step("get_after_revive", lambda: get_all(whole, "GET after the "
+                                                 "revive"),
+             nbytes(whole), len(whole))
+        # 8. the gateway killed and started again: its state is in RADOS
+        before = {k: v for k, v in listings.items() if k[0] == "before"}
+        rows = out["versions"]
+
+        def restart():
+            s3[0] = S3Client(restart_gateway(), sigv4)
+        step("gateway_restart", restart, 0, 1)
+
+        def after_restart():
+            _, bd = req("GET", "/")
+            names = re.findall(r"<Name>([^<]*)</Name>", bd.decode())
+            if sorted(names) != sorted(buckets + [swift[0]]):
+                raise AssertionError(f"buckets after the restart {names}")
+            for (_t, b, d), pages in before.items():
+                now = s3_listing(s3[0], b, d, page)
+                if b != "b3" and now != pages:
+                    raise AssertionError(f"{b} lists {now} after the "
+                                         f"gateway restart")
+                if b == "b3" and now != listings[("gateway", b, d)]:
+                    raise AssertionError(f"b3 lists {now} after the "
+                                         f"gateway restart")
+            if [(t, k, latest, size) for t, k, _v, latest, size in
+                    versions()] != rows:
+                raise AssertionError("versions after the gateway restart")
+            get_all(sorted(want), "GET after the gateway restart")
+        step("read_after_restart", after_restart, nbytes(want), len(want))
+        # 9. notifications and a second zone, through a store with a
+        # mod-log in the parent
+        src = st_mod.RGWStore(client, modlog=True)
+        nm = src.enable_notifications(push_interval=0.1)
+        rx = EventReceiver()
+        try:
+            nm.create_topic("chip", rx.url)
+            src.create_bucket("n0")
+            nm.put_bucket_notification("n0", [{
+                "id": "created", "topic": "chip",
+                "events": ["s3:ObjectCreated:*"]}])
+            dst = st_mod.RGWStore(zone_b)
+            rep = sync_mod.ZoneReplayer(src, dst, "zone-b")
+            out["full_sync"] = {}
+            step("full_sync", lambda: out["full_sync"].update(
+                objects=rep.full_sync()), nbytes(want), len(want))
+            events = [("n0", f"e{i}") for i in range(n_ev)]
+            for k in events:
+                want[k] = rng.integers(0, 256, ev_size, dtype=np.uint8)
+                etags[k] = (ev_size, hashlib.md5(
+                    want[k].tobytes()).hexdigest())
+            step("put_notify", lambda: [src.put_object(
+                b, k, want[(b, k)].tobytes()) for b, k in events],
+                nbytes(events), n_ev)
+            step("sync_once", lambda: out["full_sync"].update(
+                entries=rep.sync_once()), nbytes(events), n_ev)
+            deadline = time.time() + RGW_EVENT_WAIT_S
+            seen = set()
+            while len(seen) < n_ev:
+                if time.time() > deadline:
+                    raise AssertionError(f"{len(seen)} of {n_ev} events "
+                                         f"in {RGW_EVENT_WAIT_S} s")
+                time.sleep(0.1)
+                seen = {(r["eventName"], r["s3"]["bucket"]["name"],
+                         r["s3"]["object"]["key"], r["s3"]["object"]["size"])
+                        for r in rx.records}
+            if seen != {("s3:ObjectCreated:Put", b, k, ev_size)
+                        for b, k in events}:
+                raise AssertionError(f"events {sorted(seen)}")
+            out["events"] = sorted(seen)
+            out["event_records"] = len(rx.records)
+        finally:
+            nm.shutdown()
+            rx.close()
+        zs = {}
+        step("zone_compare", lambda: zs.update(
+            src=zone_state(src), dst=zone_state(dst)), 2 * nbytes(want),
+            len(want))
+        if zs["dst"] != zs["src"]:
+            raise AssertionError("the second zone differs from the first")
+        for (b, k), data in want.items():
+            if zs["src"][b]["objects"][k] != hashlib.sha256(
+                    data.tobytes()).hexdigest():
+                raise AssertionError(f"zone state of {b}/{k}")
+            if "multipart" in dst.head_object(b, k):
+                raise AssertionError(f"{b}/{k} arrived as a multipart")
+        out["zone"] = zs["src"]
+        out["manifests"] = {f"{b}/{k}": store.head_object(b, k)[
+            "multipart"]["parts"] for b, k in mps}
+        out["data_oids"] = sorted(st_mod._data_oid(b, k) for b, k in want
+                                  if (b, k) not in mps)
+    finally:
+        pool.shutdown()
+    out["responses"].sort(key=repr)
+    out["listings"] = sorted(out["listings"].items())
+    return out
+
+
+def start_gateway(mon: str, log: Path, profile: str):
+    """The `radosgw` entry point (python -m ceph_tpu_torch.rgw.gateway) as
+    a process: SigV4 with RGW_ACCESS / RGW_SECRET, the data pool's EC
+    profile `profile`, the port it bound from its first line.
+    Returns (the process, its address)."""
+    import re
+    import select
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "ab") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "ceph_tpu_torch.rgw.gateway", "-m", mon,
+             "--port", "0", "--ec-profile", profile, "--access-key",
+             RGW_ACCESS, "--secret", RGW_SECRET], cwd=here,
+            stdout=subprocess.PIPE, stderr=err)
+    buf, deadline = b"", time.time() + RGW_BOOT_TIMEOUT_S
+    while time.time() < deadline:
+        m = re.search(rb"radosgw listening on \('[^']*', (\d+)\)", buf)
+        if m:
+            return proc, ("127.0.0.1", int(m.group(1)))
+        if proc.poll() is not None:
+            raise AssertionError(f"the gateway exited {proc.returncode}: "
+                                 f"{log.read_bytes()[-4000:]!r}")
+        r, _, _ = select.select([proc.stdout], [], [], 0.2)
+        if r:
+            buf += os.read(proc.stdout.fileno(), 4096)
+    proc.kill()
+    raise AssertionError(f"the gateway was not ready in "
+                         f"{RGW_BOOT_TIMEOUT_S} s")
+
+
+def object_service_run(device: str, root, cache_dir) -> dict:
+    """Phase P on one process cluster over BlueStore: the data pool made
+    first, the gateway a process, object_sequence through it and through
+    stores in the parent, a second zone an in-process cluster on
+    `device` with its own torch k=8 m=3 `.rgw.data`; then the `rgw`
+    role of daemon_main (ProcCluster.spawn_rgw) serves a bucket, an
+    object and a GET.  Each step's launches are read through the
+    daemons' `launch profile`, as phase M's are; the second zone's
+    through the kernel wrappers' counts in this process."""
+    import types
+    import urllib.request
+
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.rgw import sigv4
+    from ceph_tpu_torch.rgw import store as st_mod
+    from ceph_tpu_torch.rgw import sync as sync_mod
+    from ceph_tpu_torch.tools.proc_cluster import ProcCluster
+    from ceph_tpu_torch.tools.vstart import Cluster
+    asok_dir = root / "asok"
+    asok_dir.mkdir(parents=True)
+    report = {"osds": N_RGW_OSDS, "zone_b_osds": RGW_ZONE_B_OSDS,
+              "steps": {}, "launches": {}, "zone_b_launches": {}}
+    c = ProcCluster(n_osds=N_RGW_OSDS, objectstore="bluestore",
+                    data_dir=str(root / "data"), asok_dir=str(asok_dir),
+                    heartbeat_interval=0.0, prewarm=True,
+                    compile_cache_dir=str(cache_dir),
+                    boot_timeout=PROC_BOOT_TIMEOUT_S, device=device)
+    daemons = ProcDaemons(c, cache_dir)
+    on_card = torch.device(device).type == "cuda"
+    gw = {}
+    zone = {"counts": bs.launch_counts()}
+
+    def step(label, fn, nbytes, ops=0):
+        st = report["steps"][label] = timed(fn, nbytes)
+        if on_card:
+            torch.cuda.synchronize()
+        if ops:
+            st.update(ops=ops, ops_s=ops / st["wall_s"])
+        report["launches"][label] = daemons.read_launches()
+        now = bs.launch_counts()
+        report["zone_b_launches"][label] = {
+            k: now[k] - zone["counts"][k] for k in now}
+        zone["counts"] = now
+        if gw["proc"].poll() is not None:
+            raise AssertionError(f"the gateway exited "
+                                 f"{gw['proc'].returncode} in {label}")
+
+    def restart_gateway():
+        gw["proc"].kill()
+        gw["proc"].wait()
+        gw["proc"], addr = start_gateway(mon, root / "rgw.log", name)
+        return addr
+
+    name, profile, pg_num = RGW_POOL
+    zone_b = None
+    t0 = time.perf_counter()
+    try:
+        c.start()
+        report["boot_s"] = time.perf_counter() - t0
+        for i in range(N_RGW_OSDS):
+            daemons.boot_check(i)
+        mon = "%s:%d" % tuple(c.mon_addrs[0])
+        cl = c.client()
+        cl.set_ec_profile(name, profile)
+        cl.create_pool(st_mod.DATA_POOL, "erasure",
+                       erasure_code_profile=name, pg_num=pg_num)
+        t = time.perf_counter()
+        gw["proc"], addr = start_gateway(mon, root / "rgw.log", name)
+        report["gateway_boot_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        zone_b = Cluster(n_osds=RGW_ZONE_B_OSDS, device=device).start()
+        report["zone_b_boot_s"] = time.perf_counter() - t
+        zcl = zone_b.client()
+        zcl.set_ec_profile(name, profile)
+        zcl.create_pool(st_mod.DATA_POOL, "erasure",
+                        erasure_code_profile=name, pg_num=pg_num)
+        c.wait_active_clean(timeout=PROC_CLEAN_TIMEOUT_S)
+        daemons.read_launches()
+        zone["counts"] = bs.launch_counts()
+        res = object_sequence(
+            addr, types.SimpleNamespace(sigv4=sigv4, store=st_mod,
+                                        sync=sync_mod),
+            cl, c, daemons.boot_check, restart_gateway, zcl, RGW_SIZES,
+            step)
+        report.update({k: res[k] for k in (
+            "victim", "versions", "lifecycle", "full_sync", "events",
+            "event_records", "manifests")})
+        report["responses"] = len(res["responses"])
+        report["zone_objects"] = {b: len(v["objects"])
+                                  for b, v in res["zone"].items()}
+        # 10. the rgw role of daemon_main, through ProcCluster.spawn_rgw
+        t = time.perf_counter()
+        host, port = c.spawn_rgw()
+        base = f"http://{host}:{port}"
+        for path, data in (("/pbucket", None), ("/pbucket/k", b"procdata")):
+            with urllib.request.urlopen(urllib.request.Request(
+                    base + path, data=data, method="PUT"), timeout=60) as r:
+                if r.status != 200:
+                    raise AssertionError(f"rgw role PUT {path}: {r.status}")
+        with urllib.request.urlopen(base + "/pbucket/k", timeout=60) as r:
+            if r.read() != b"procdata":
+                raise AssertionError("rgw role GET")
+        report["rgw_role_s"] = time.perf_counter() - t
+        report["launches"]["rgw_role"] = daemons.read_launches()
+        if gw["proc"].poll() is not None:
+            raise AssertionError(f"the gateway exited "
+                                 f"{gw['proc'].returncode}")
+    finally:
+        if gw.get("proc") is not None:
+            gw["proc"].kill()
+            gw["proc"].wait()
+        if zone_b is not None:
+            zone_b.stop()
+        c.stop()
+    report["launch_totals"] = daemons.totals
+    report["zone_b_totals"] = {}
+    for counts in report["zone_b_launches"].values():
+        for k, n in counts.items():
+            report["zone_b_totals"][k] = report["zone_b_totals"].get(
+                k, 0) + n
+    return report
+
+
+def phase_object_service(tmp) -> tuple[dict, dict, dict]:
+    """Phase P: the object service on the card, in a process cluster of
+    its own whose daemons load the library the parent built, and a
+    second zone in this process.  Returns (the daemons' launch counts,
+    the second zone's, the report)."""
+    from ceph_tpu_torch.ops import _build
+    root = tmp / "rgw"
+    cache_dir = root / "cache"
+    cache_dir.mkdir(parents=True)
+    shutil.copy2(_build.library_path(), cache_dir)
+    res = object_service_run("cuda", root, cache_dir)
+    total, zone_b = res["launch_totals"], res["zone_b_totals"]
+    missing = [k for k in ("fused_hier_acc_call", "gf_encode_with_crc_w32",
+                           "gf_bitmatmul") if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase P missed kernels {missing}: {total}")
+    if zone_b.get("fused_hier_acc_call", 0) <= 0:
+        raise AssertionError(f"phase P's second zone launched no K3: "
+                             f"{zone_b}")
+    res["card"] = nvidia_smi_line()
+    print(f"# object service ({res['card']}): boot {res['boot_s']:.2f} s, "
+          f"gateway {res['gateway_boot_s']:.2f} s, second zone "
+          f"{res['zone_b_boot_s']:.2f} s; "
+          + "; ".join(f"{k} {v['GBps']:.4f} GB/s"
+                      + (f" {v['ops_s']:.1f} op/s" if v.get("ops") else "")
+                      + f" ({v['wall_s']:.3f} s)"
+                      for k, v in res["steps"].items())
+          + f"; events {res['event_records']}; launches {total}; second "
+          f"zone {zone_b}", flush=True)
+    return total, zone_b, res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3669,6 +4458,9 @@ def main() -> int:
         pin_point(tmp / "pinned_fs.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         fs_counts, fs_report = phase_file_service(tmp)
+        pin_point(tmp / "pinned_rgw.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        rgw_counts, rgw_zone_counts, rgw_report = phase_object_service(tmp)
         ab = phase_ab()
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
@@ -3682,7 +4474,9 @@ def main() -> int:
             bench_counts[k] = bench_counts.get(k, 0) + n
     for phase, launched in (("L", cluster_counts), ("M", proc_counts),
                             ("N", rbd_counts), ("O", fs_counts),
-                            ("O's cluster_bench", bench_counts)):
+                            ("O's cluster_bench", bench_counts),
+                            ("P", rgw_counts),
+                            ("P's secondary zone", rgw_zone_counts)):
         unheld = [k for k, n in launched.items() if n and k not in held]
         if unheld:
             raise AssertionError(f"phase {phase} launched {unheld}, which "
@@ -3701,6 +4495,7 @@ def main() -> int:
             row["proc_cluster_launches"] = None
             row["block_service_launches"] = None
             row["file_service_launches"] = None
+            row["object_service_launches"] = None
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
@@ -3710,6 +4505,8 @@ def main() -> int:
         row["proc_cluster_launches"] = proc_counts.get(counter, 0)
         row["block_service_launches"] = rbd_counts.get(counter, 0)
         row["file_service_launches"] = fs_counts.get(counter, 0)
+        row["object_service_launches"] = rgw_counts.get(counter, 0) + \
+            rgw_zone_counts.get(counter, 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -3742,6 +4539,7 @@ def main() -> int:
     bench = fs_report.pop("cluster_bench")
     print(json.dumps({"file_service": fs_report, "cluster_bench": bench}),
           flush=True)
+    print(json.dumps({"object_service": rgw_report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}), flush=True)

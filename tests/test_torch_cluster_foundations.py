@@ -78,6 +78,21 @@ def run_case(mod: types.ModuleType, case: str, **fixtures):
     return fn(**{k: fixtures[k] for k in want})
 
 
+def cases(mod: types.ModuleType) -> list[str]:
+    """The test functions of a ported module, in their file's order."""
+    return [n for n, f in vars(mod).items()
+            if n.startswith("test_") and inspect.isfunction(f)]
+
+
+def replay(mod: types.ModuleType, case: str, request):
+    """Call one test function of a ported module with the fixtures its
+    signature names, taken from pytest (the replaying file imports the
+    ported module's own fixtures)."""
+    fn = getattr(mod, case)
+    return fn(**{k: request.getfixturevalue(k)
+                 for k in inspect.signature(fn).parameters})
+
+
 # -- the op tracker and ECBackend's tracked ops (tests/test_optracker.py) ----
 
 OPTRACKER = ported("test_optracker", subs=[(

@@ -1110,3 +1110,76 @@ def test_cephfs_on_card(cuda_device, tmp_path, monkeypatch):
     finally:
         ECLaunchQueue.reset_host()
         DeviceProfiler.reset_host()
+
+
+def test_rgw_on_card(cuda_device, tmp_path, monkeypatch):
+    """An S3 gateway whose data pool is torch k=8 m=3 in a cluster whose
+    codecs run on the card, its point pinned to K3: a 4 MiB PUT (one
+    full-stripe write, K3), a 64 KiB PUT (K2's flat entry), then both
+    GETs with the OSD of data shard 1 of the 4 MiB object down (K1
+    decodes); every GET equals the bytes PUT."""
+    import json
+    import urllib.request
+
+    from ceph_tpu_torch.ops import autotune
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.ops.profiler import DeviceProfiler
+    from ceph_tpu_torch.parallel.launch_queue import ECLaunchQueue
+    from ceph_tpu_torch.rgw import S3Gateway
+    from ceph_tpu_torch.rgw.store import DATA_POOL, _data_oid
+    from ceph_tpu_torch.tools.vstart import Cluster
+    point = tmp_path / "pinned.json"
+    point.write_text(json.dumps({"version": 2, "entries": {
+        autotune._device_key(cuda_device, 8, 3): {
+            **autotune.default_point(), "combine": "kernel", "gbps": 0.0,
+            "when": "pinned"}}}))
+    monkeypatch.setenv("CEPH_TPU_AUTOTUNE_CACHE", str(point))
+    ECLaunchQueue.reset_host()
+    DeviceProfiler.reset_host()
+    rng = np.random.default_rng(68)
+    objs = {"big": rng.integers(0, 256, 4 << 20, dtype=np.uint8).tobytes(),
+            "small": rng.integers(0, 256, 64 << 10,
+                                  dtype=np.uint8).tobytes()}
+
+    def http(method, path, data=None):
+        req = urllib.request.Request(base + path, data=data, method=method)
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+    try:
+        with Cluster(n_osds=12, device=str(cuda_device)) as c:
+            cl = c.client()
+            cl.set_ec_profile("gp", {"plugin": "torch", "k": "8", "m": "3",
+                                     "technique": "cauchy",
+                                     "stripe_unit": "4096"})
+            cl.create_pool(DATA_POOL, "erasure", erasure_code_profile="gp",
+                           pg_num=16)
+            gw = S3Gateway(cl, ec_profile="gp")
+            try:
+                base = f"http://{gw.addr[0]}:{gw.addr[1]}"
+                http("PUT", "/card")
+                bs.reset_launch_counts()
+                wrote = {}
+                for name, body in objs.items():
+                    http("PUT", f"/card/{name}", body)
+                    torch.cuda.synchronize()
+                    wrote[name] = bs.launch_counts()
+                obj = gw.store.data.client.objecter
+                pgid = obj._calc_target(gw.store.data.pool_id,
+                                        _data_oid("card", "big"))[0].pgid
+                victim = obj.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+                c.kill_osd(victim)
+                c.mark_osd_down(victim)
+                got = {name: http("GET", f"/card/{name}") for name in objs}
+                torch.cuda.synchronize()
+                n = bs.launch_counts()
+            finally:
+                gw.shutdown()
+        for name, body in objs.items():
+            assert got[name] == body, name
+        assert wrote["big"]["fused_hier_acc_call"] > 0, wrote
+        assert wrote["small"]["gf_encode_with_crc_w32"] > \
+            wrote["big"]["gf_encode_with_crc_w32"], wrote
+        assert n["gf_bitmatmul"] > wrote["small"]["gf_bitmatmul"], n
+    finally:
+        ECLaunchQueue.reset_host()
+        DeviceProfiler.reset_host()

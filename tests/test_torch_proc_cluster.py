@@ -4,7 +4,8 @@ ceph_tpu_torch.tools.daemon_main ... --device cpu`), one module-scoped
 cluster.  tests/test_proc_cluster.py's I/O and SIGKILL cases replay on
 a `torch` EC pool; a cold restart SIGKILLs every daemon, the mon too,
 and brings the cluster back from its data dirs with every acked write
-intact.  tests/test_torch_proc_cluster_blue.py runs the same on
+intact; a gateway in its own process (the `rgw` role) serves from
+the cluster.  tests/test_torch_proc_cluster_blue.py runs the same on
 BlueStore."""
 
 import numpy as np
@@ -118,3 +119,9 @@ def cold_restart_case(cluster):
                             {"prefix": "launch profile"})
     # the plain versions ran: no kernel launched on the CPU
     assert set(profile["kernel_launches"].values()) == {0}
+
+
+def test_rgw_process_replay(cluster):
+    """tests/test_proc_cluster.py's gateway in its own process, last:
+    its pools join the cluster after the cases above."""
+    run_case(PROC, "test_rgw_process", cluster=cluster)

@@ -1,12 +1,14 @@
 """The port's process cluster on the CPU over BlueStore (the cases of
-tests/test_torch_proc_cluster.py on their own module-scoped cluster),
-and the daemon entry point's refusals: `--device cuda` without a GPU
-and the role whose service is not ported (rgw) exit non-zero, and a
+tests/test_torch_proc_cluster.py on their own module-scoped cluster);
+every role of the reference's daemon entry point runs in the port's;
+its refusals: `--device cuda` without a GPU exits non-zero, and a
 daemon that dies at boot shows its log."""
 
+import argparse
 import subprocess
 import sys
 import time
+import urllib.request
 
 import pytest
 
@@ -51,19 +53,51 @@ def test_daemon_on_cuda_without_gpu_exits_nonzero(tmp_path):
         assert "no CUDA device" in proc.stderr
 
 
-def test_unported_roles_exit_with_their_names():
-    """Only `rgw` is left unported: its role exits 2 naming it and
-    `spawn_rgw` raises (the `mds` role runs an MDS,
-    tests/test_torch_file_service.py)."""
-    assert list(daemon_main.NOT_PORTED_ROLES) == ["rgw"]
-    assert daemon_main.main(["rgw", "--mon", "127.0.0.1:9"]) == 2
-    proc = _daemon("rgw", "--mon", "127.0.0.1:9")
-    assert proc.returncode == 2
-    assert "rgw (the S3 gateway)" in proc.stderr and "not ported" in \
-        proc.stderr
-    c = ProcCluster.__new__(ProcCluster)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        c.spawn_rgw()
+def _roles(main, monkeypatch) -> set[str]:
+    """The roles a daemon_main's parser accepts: the choices of its
+    subcommand, read as it parses."""
+    seen = {}
+
+    def grab(parser, *_a, **_k):
+        sub = next(a for a in parser._actions
+                   if isinstance(a, argparse._SubParsersAction))
+        seen.update(sub.choices)
+        raise SystemExit(0)
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", grab)
+        with pytest.raises(SystemExit):
+            main([])
+    return set(seen)
+
+
+def test_every_reference_role_runs_in_the_port(cluster, monkeypatch):
+    """The port's daemon_main takes every role the reference's does, each
+    dispatched to its own runner (no role exits as not ported), and each
+    runs: this module's cluster runs the mons and OSDs, and the `rgw`
+    and `mds` roles start through ProcCluster and serve."""
+    from ceph_tpu.tools import daemon_main as ref
+    roles = _roles(ref.main, monkeypatch)
+    assert roles == _roles(daemon_main.main, monkeypatch) == \
+        {"mon", "osd", "mds", "rgw"}
+    assert not hasattr(daemon_main, "NOT_PORTED_ROLES")
+    argv = {"mon": ["--addrs", "127.0.0.1:9"],
+            "osd": ["--id", "0", "--mon", "127.0.0.1:9"],
+            "mds": ["--mon", "127.0.0.1:9"],
+            "rgw": ["--mon", "127.0.0.1:9"]}
+    for role in roles:
+        ran = []
+        monkeypatch.setattr(daemon_main, f"run_{role}",
+                            lambda args, role=role: ran.append(role) or 0)
+        assert daemon_main.main([role, *argv[role]]) == 0
+        assert ran == [role]
+    monkeypatch.undo()
+    assert all(p.poll() is None for p in cluster.mon_procs)
+    assert all(p.poll() is None for p in cluster.osd_procs)
+    host, port = cluster.spawn_rgw()
+    with urllib.request.urlopen(f"http://{host}:{port}/", timeout=60) as r:
+        assert r.status == 200 and b"ListAllMyBucketsResult" in r.read()
+    host, port = cluster.spawn_mds("a")
+    assert port > 0 and cluster.mds_procs["a"].poll() is None
 
 
 def test_boot_failure_shows_the_daemon_log(tmp_path):
