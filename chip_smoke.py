@@ -164,8 +164,8 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    on.  Pool A is torch k=8 m=3 cauchy, stripe unit 4096 B, 16 PGs
    (ISA-L's canonical profile, its point pinned to K3); pool B CLAY
    k=8 m=4 d=11, 8 PGs (BASELINE.json).  Through RadosClient, 16 ops in
-   flight: 64 x 4 MiB written to pool A, 16 partial 64 KiB overwrites
-   (RMW), 16 x 4 MiB to pool B, every object read back; OSD 5 killed
+   flight: 16 x 4 MiB written to pool A, 16 partial 64 KiB overwrites
+   (RMW), 8 x 4 MiB to pool B, every object read back; OSD 5 killed
    and marked down and every object read degraded; OSD 5 marked out
    (`osd out`) and the cluster waited to active+clean (recovery onto
    the remapped PGs: K1 decodes, K4 CLAY repairs); every object read
@@ -220,15 +220,15 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    through the `rbd` and `rados` CLIs (tools/rbd_cli, tools/rados_cli,
    each a subprocess with `-m` the mon) at RBD's default order 22 (4 MiB
    objects), a RadosClient in the parent keeping the bytes expected:
-   `rbd create` of a 1 GiB thin image and `rbd import` of a seeded 256
-   MiB file; `rbd bench` at 4 MiB (64 whole-object writes, K3) and at
-   4 KiB over 256 KiB (64 read-modify-writes, K1 encodes); `rbd snap
+   `rbd create` of a 256 MiB thin image and `rbd import` of a seeded 64
+   MiB file; `rbd bench` at 4 MiB (16 whole-object writes, K3) and at
+   4 KiB over 64 KiB (16 read-modify-writes, K1 encodes); `rbd snap
    create`, 16 writes of 64 KiB through the library (copy-on-write
    clones on the OSDs), `rbd export-diff` from the snapshot and up to
    it, `rbd export` of the image and of an image rebuilt from the
    diffs by `rbd import-diff`; `rbd clone` of the snapshot and 16
    writes of 4 KiB into the clone (each first write to a block a
-   copyup); a 64 MiB striped object at libradosstriper's default layout
+   copyup); a 16 MiB striped object at libradosstriper's default layout
    read whole, in part, and its first piece through `rados get`; then
    the OSD of data shard 1 of the image's first object SIGKILLed and
    marked down, `rbd export` degraded (K1 decodes), the OSD revived to
@@ -247,8 +247,8 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    ProcCluster.spawn_mds), and a mgr in the parent with the default
    modules and the dashboard, started before any file data: the
    balancer's moves must settle (at most 60 s).  A CephFS client in the
-   parent (`fs_sequence`): /vol/d0-d3, 16 files of 16 MiB (64 whole
-   blocks, K3) and 64 of 64 KiB; 16 overwrites of 64 KiB at 4 KiB
+   parent (`fs_sequence`): /vol/d0-d3, 4 files of 16 MiB (16 whole
+   blocks, K3) and 16 of 64 KiB; 16 overwrites of 64 KiB at 4 KiB
    aligned offsets (read-modify-writes, K1 encodes); a truncate to an
    unaligned size, a directory rename, 8 unlinks whose data objects
    must be purged; a snapshot of /vol and 16 overwrites under it (its
@@ -264,7 +264,7 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    `pg stat`, `ceph_cli daemon` osd.0's `launch profile` (equal to
    its admin socket's), metrics_exporter.collect (every daemon up, the
    launch-latency gauges), the dashboard's /api/health (the mgr's
-   status).  Then tools/cluster_bench --quick --mesh at 4 MiB for 5 s a
+   status).  Then tools/cluster_bench --quick --mesh at 4 MiB for 1 s a
    row on the card (thread topology, 12 OSDs on MemStore): every row
    must write and read, the mesh row must name its mesh and launch K1.
    Every read must equal the bytes written; K3 and K1 must have
@@ -279,8 +279,8 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    0 --ec-profile rgw_k8m3` with SigV4 credentials), a second zone an
    in-process cluster of 12 OSDs on the card with its own torch k=8 m=3
    `.rgw.data` (`object_sequence`, through an S3 client signing with
-   the port's sigv4): buckets b0-b3, 64 objects of 4 MiB PUT from 8
-   client threads (K3; each ETag the body's md5), 64 of 64 KiB (K2
+   the port's sigv4): buckets b0-b3, 16 objects of 4 MiB PUT from 8
+   client threads (K3; each ETag the body's md5), 16 of 64 KiB (K2
    flat), two multipart uploads of 4 x 5 MiB parts (the ETag's
    md5-of-md5s form, a whole GET, a ranged read of a part) and a
    server-side copy; versioning on b1 (two versions read back by id, a
@@ -304,7 +304,46 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    exit fails the phase.  Each step's wall, bytes, GB/s or op/s and the
    launches by kernel (daemons and second zone) are printed with the
    card's name and power limit.
-18. A/B (phase F): the native CPU library must have built; then
+18. The load harness and the deployer (phase Q): tools/load_harness.py
+   and tools/deploy.py through their entry points.  Q1: `python -m
+   ceph_tpu_torch.tools.load_harness --scenario qos-sim` and
+   `qos-sim-recovery` (the mClock sims in virtual time) must exit 0
+   with the victim isolated.  Q2: run_ec_pg_sweep in this process, as
+   bench.py calls it: 128 objects of 4 MiB over 1, 8 and 64 PGs of torch
+   k=8 m=3 (K3 pinned, stripe unit 4096 B) that share one launch queue,
+   one pass; every object acked, a launch that coalesced PGs and more
+   than one run a launch (the fraction of the one-PG rate is printed
+   beside the reference's 0.8, not gated).  Q3: run_degraded_read_storm
+   (12 OSDs, 16 x 4 MiB, one kill/revive cycle, 3 timed read passes)
+   in a child process (`chip_smoke.py --harness-child storm CACHE`):
+   `ok`, zero acked loss, no mismatch, a reconstructed read.  Q4, in a
+   child (`--harness-child mixed CACHE`): a 12-OSD cluster with a torch
+   k=8 m=3 pool of 16 PGs and `.rgw.data` of the same profile made
+   before the gateway starts; run_rados_mixed closed-loop (16 clients,
+   64 Zipf-hot objects of 4 MiB, half reads, 5 s) and open-loop (8
+   workers x 25 sessions at 10/s, 4x bursts on 5 ops of every 20, 64
+   KiB objects, 5 s), run_s3_mixed (8 clients, 32 objects of 4 MiB, 5
+   s), run_rbd_mixed on a replicated pool (4 clients, 3 s): every row
+   0 errors and some ops.  Q5: `python -m ceph_tpu_torch.tools.deploy
+   apply` of the deployer's example spec on BlueStore (a mon, 12 OSDs,
+   an MDS and a gateway, booted one at a time, codecs on the card, the
+   library from the run's cache directory); `ls` shows the 15 units
+   running; a torch k=8 m=3 pool of 16 PGs made through the mon of
+   monmap.json, 16 x 4 MiB written, `stop` of the OSD of data shard 1
+   of the first object, every object read degraded, 4 MiB PUT and GET
+   through rgw.0, `start` of the OSD to active+clean, every object read
+   again; `rm-cluster` leaves no live pid and no directory.  Deployed
+   daemons serve no admin socket, so Q5 counts no launches: its reads,
+   equal to the bytes written, and its units' `--device cuda` show the
+   work.  Q5 runs beside Q3 and Q4 (its daemons boot one at a time,
+   about two minutes on the card).  K3, K2 flat and K1 must have
+   launched over Q2-Q4 (Q3's and Q4's counted in their children), only
+   kernels the rows held.  Each
+   sub-phase's wall, Q2's GB/s by PG count, runs a launch and occupancy,
+   Q3's read percentiles, degraded-window ledger and device stages,
+   Q4's rows' percentiles and Q5's steps are printed with the card's
+   name and power limit.
+19. A/B (phase F): the native CPU library must have built; then
    ec_benchmark --ab (isa against torch, 1 MiB objects, per call and
    --batch 32, 1 s a side and mode) and -p isa / -p jerasure with the
    canonical invocation.
@@ -312,13 +351,13 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
 Output: the card's name and power limit, the sweep tables, the kernels,
 K3 table and K2 table JSON lines (each kernel row with its launches on
 its own phase, in the recovery storm, in phase K, in phase L, in
-phase M's, phase N's and phase O's daemons and in phase P's daemons
-and second zone), the
+phase M's, phase N's and phase O's daemons, in phase P's daemons
+and second zone and in phase Q), the
 main paths', the benchmark's, the w32 sweep's, the CLAY repair's, the
 recovery storm's, the deep scrub's, the boot's, the mesh's, the
 cluster's, the process cluster's, the block service's, the A/B's and
-the file service's (with cluster_bench's rows) and the object
-service's lines,
+the file service's (with cluster_bench's rows), the object
+service's and the harness's lines,
 and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 (the script drives one card).  Any failure raises and exits non-zero.
@@ -2301,13 +2340,15 @@ def phase_benchmark():
 # Pool A is ISA-L's canonical profile on the torch plugin (BASELINE.json's
 # write path), pool B BASELINE.json's CLAY profile; 13 OSDs let both remap
 # around one lost OSD (pool B spans 12).  Objects are RBD's 4 MiB, written
-# and read 16 at a time (rados bench's default concurrency).
+# and read 16 at a time (rados bench's default concurrency), as few as
+# keep the whole script in its time: phase Q's Q3 and Q4 repeat the
+# writes and degraded reads on 12 OSDs (PERF.md section 4).
 N_CLUSTER_OSDS = 13
 CLUSTER_POOLS = (
     ("poola", {"plugin": "torch", "k": str(K), "m": str(M),
                "technique": "cauchy", "stripe_unit": str(STRIPE_UNIT)}, 16),
     ("poolb", {"plugin": "clay", "k": "8", "m": "4", "d": "11"}, 8))
-N_CLUSTER_OBJECTS = {"poola": 64, "poolb": 16}
+N_CLUSTER_OBJECTS = {"poola": 16, "poolb": 8}
 CLUSTER_OBJECT = BIG
 N_CLUSTER_RMW = 16
 CLUSTER_RMW_LEN = SMALL
@@ -2976,21 +3017,23 @@ def phase_proc_cluster(tmp) -> tuple[dict, dict]:
 # pinned), 16 PGs, in a process cluster of its own laid out as phase
 # M's, driven through the `rbd` and `rados` CLIs.  `rbd bench`'s
 # io-total at 4 KiB (its default io-size) is cut from Ceph's 1 GiB to
-# 256 KiB: each 4 KiB write on an EC pool is a read-modify-write.  The
-# striped object takes libradosstriper's default layout (stripe unit 4
-# MiB, stripe count 1, object size 4 MiB: default_file_layout in
+# 64 KiB: each 4 KiB write on an EC pool is a read-modify-write.  The
+# image, the import, the 4 MiB bench and the striped object are cut to
+# keep the whole script in its time (PERF.md section 4 lists the cuts).
+# The striped object takes libradosstriper's default layout (stripe unit
+# 4 MiB, stripe count 1, object size 4 MiB: default_file_layout in
 # src/libradosstriper/RadosStriperImpl.cc).
 N_RBD_OSDS = 12
 RBD_POOL = ("rbd", PROC_POOL[1], 16)
 RBD_SIZES = {
     "order": 22,
-    "image": 1 << 30,                   # vol0, a thin image
-    "import": 256 << 20,                # vol1, imported from a file
-    "bench_big": (4 << 20, 256 << 20),  # rbd bench io-size, io-total
-    "bench_small": (4 << 10, 256 << 10),
+    "image": 256 << 20,                 # vol0, a thin image
+    "import": 64 << 20,                 # vol1, imported from a file
+    "bench_big": (4 << 20, 64 << 20),   # rbd bench io-size, io-total
+    "bench_small": (4 << 10, 64 << 10),
     "snap_writes": (16, 64 << 10),      # writes after the snapshot
     "child_writes": (16, 4 << 10),      # writes into the clone
-    "striper": (64 << 20, 4 << 20, 1, 4 << 20),  # size, su, sc, os
+    "striper": (16 << 20, 4 << 20, 1, 4 << 20),  # size, su, sc, os
 }
 RBD_CLI_TIMEOUT_S = 600.0
 
@@ -3230,13 +3273,15 @@ def phase_block_service(tmp) -> tuple[dict, dict]:
 # keeps it; `cephfs_metadata` replicated, made by the MDS.  A process
 # cluster of its own laid out as phase M's, one MDS process, a mgr in
 # the parent with the default modules and the dashboard (Octopus runs
-# the balancer in upmap mode by default).
+# the balancer in upmap mode by default).  File counts and cluster_bench's
+# seconds are cut to keep the whole script in its time (PERF.md section
+# 4).
 N_FS_OSDS = 12
 FS_POOL = ("cephfs_data", PROC_POOL[1], 16)
 FS_SIZES = {
     "dirs": 4,                     # /vol/d0 ... /vol/d3
-    "big": (16, 16 << 20),         # files, bytes each: 4 blocks of 4 MiB
-    "small": (64, 64 << 10),
+    "big": (4, 16 << 20),          # files, bytes each: 4 blocks of 4 MiB
+    "small": (16, 64 << 10),
     "overwrites": (16, 64 << 10),  # each round, at 4 KiB aligned offsets
     "unlinks": 8,
 }
@@ -3247,7 +3292,7 @@ FS_TOOL_TIMEOUT_S = 600.0
 # cluster_bench's thread topology (its default: 12 OSDs on MemStore) on
 # the card, the quick matrix and the mesh row over every visible card
 FS_BENCH_ARGV = ["--quick", "--mesh", "--size", str(4 << 20),
-                 "--seconds", "5"]
+                 "--seconds", "1"]
 
 
 def fs_namespace(fs, path="/") -> dict:
@@ -3648,16 +3693,18 @@ def phase_file_service(tmp) -> tuple[dict, dict]:
 # `.rgw.meta` replicated, made by the gateway.  A process cluster of its
 # own laid out as phase M's, the gateway a process of its own (the
 # `radosgw` entry point with SigV4 on), and a second zone, an in-process
-# cluster on the card, that syncs from it.
+# cluster on the card, that syncs from it.  The object counts are cut to
+# keep the whole script in its time (PERF.md section 4): the full sync
+# and the zone compare read every object.
 N_RGW_OSDS = 12
 RGW_POOL = ("rgw_k8m3", PROC_POOL[1], 16)
 RGW_ZONE_B_OSDS = 12
 RGW_ACCESS, RGW_SECRET = "chipsmoke", "chipsmoke-secret"
 RGW_SIZES = {
     "buckets": 4,                  # b0 ... b3
-    "big": (64, 4 << 20),          # objects, bytes each: one RADOS object
+    "big": (16, 4 << 20),          # objects, bytes each: one RADOS object
     "threads": 8,                  # client threads of the big PUTs, GETs
-    "small": (64, 64 << 10),
+    "small": (16, 64 << 10),
     "multipart": (2, 4, 5 << 20),  # uploads, parts each, bytes a part
     "version": 4 << 20,            # a key PUT twice on a versioned bucket
     "lifecycle": (8, 64 << 10),    # objects under tmp/, expired
@@ -4392,6 +4439,474 @@ def phase_object_service(tmp) -> tuple[dict, dict, dict]:
     return total, zone_b, res
 
 
+# Phase Q: the load harness and the deployer (tools/load_harness.py,
+# tools/deploy.py) through their entry points, at Octopus's shapes: k=8
+# m=3 torch pools (K3 pinned), 4 MiB objects (RBD's default object
+# size), stripe unit 4096 B but where the harness fixes its own.  Q1 the
+# virtual-time QoS sims as the CLI runs them; Q2 the many-PG write sweep
+# (1 -> 8 -> 64 PGs on one launch queue, as bench.py runs it) in this
+# process; Q3 the degraded-read storm (12 OSDs, 16 x 4 MiB) and Q4 mixed
+# rados / S3 / RBD traffic on a 12-OSD cluster, each in a child process
+# whose library comes from the run's cache directory; Q5 `deploy apply`
+# of the deployer's own example spec on Octopus's default BlueStore.
+HARNESS_CHILD_TIMEOUT_S = 600
+Q_PG_SWEEP = {"pg_counts": (1, 8, 64), "total_objs": 128, "objsize": BIG,
+              "chunk": STRIPE_UNIT, "passes": 1}
+Q_STORM = {"n_osds": 12, "objects": 16, "size": BIG, "cycles": 1,
+           "read_passes": 3}
+N_MIXED_OSDS = 12
+MIXED_POOL = ("hl_k8m3", PROC_POOL[1], 16)
+MIXED_ROWS = {
+    # closed loop: 16 clients over 64 Zipf-hot 4 MiB objects
+    "rados_closed": {"clients": 16, "n_objects": 64, "size": BIG,
+                     "read_frac": 0.5, "zipf_alpha": 1.1, "seconds": 5.0},
+    # open loop, the harness's burst shape: 200 sessions at 10/s each,
+    # 4x bursts on 5 ops of every 20, 64 KiB objects
+    "rados_open": {"clients": 8, "sessions_per_client": 25, "rate": 10.0,
+                   "burst_factor": 4.0, "burst_every": 20, "burst_len": 5,
+                   "n_objects": 64, "size": SMALL, "read_frac": 0.5,
+                   "zipf_alpha": 1.1, "seconds": 5.0},
+    "s3": {"clients": 8, "n_objects": 32, "size": BIG, "seconds": 5.0},
+    "rbd": {"clients": 4, "seconds": 3.0},
+}
+DEPLOY_SPEC = {"mons": 1, "osds": 12, "objectstore": "bluestore",
+               "mds": ["a"], "rgw": 1}
+DEPLOY_POOL = ("deploy_k8m3", PROC_POOL[1], 16)
+N_DEPLOY_OBJECTS = 16
+DEPLOY_OBJECT = BIG
+DEPLOY_TIMEOUT_S = 600
+DEPLOY_CLEAN_TIMEOUT_S = 300.0
+
+
+def harness_sims() -> dict:
+    """Q1: `load_harness --scenario qos-sim` and `qos-sim-recovery` as
+    processes; each must exit 0 with its victim isolated."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    rows = {}
+    for scenario in ("qos-sim", "qos-sim-recovery"):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.load_harness",
+             "--scenario", scenario], capture_output=True, text=True,
+            cwd=here, timeout=120)
+        if proc.returncode != 0:
+            raise AssertionError(f"load_harness {scenario} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        if row["isolated"] is not True:
+            raise AssertionError(f"{scenario}: not isolated: {row}")
+        row["wall_s"] = time.perf_counter() - t
+        rows[scenario] = row
+    return rows
+
+
+def harness_pg_sweep(device: str) -> tuple[dict, dict]:
+    """Q2: run_ec_pg_sweep in this process, as bench.py calls it; every
+    object acked (the sweep raises otherwise), a launch that coalesced
+    PGs and more than one run a launch.  Returns (its launch counts, the
+    row)."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.tools import load_harness
+    bs.reset_launch_counts()
+    t = time.perf_counter()
+    row = load_harness.run_ec_pg_sweep(**Q_PG_SWEEP, min_frac=0.0,
+                                       device=device)
+    row["wall_s"] = time.perf_counter() - t
+    counts = bs.launch_counts()
+    if not row["ok"] or row["cross_pg_launches"] < 1 or \
+            row["runs_per_launch"] <= 1.0:
+        raise AssertionError(f"ec-pg-sweep: {row}")
+    return counts, row
+
+
+def harness_storm(device: str) -> dict:
+    """Q3's traffic: run_degraded_read_storm and the launches it made.
+    The row must be `ok`, lose no acked byte, read nothing wrong and
+    rebuild at least one read."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.tools import load_harness
+    bs.reset_launch_counts()
+    t = time.perf_counter()
+    row = load_harness.run_degraded_read_storm(**Q_STORM, device=device)
+    row["wall_s"] = time.perf_counter() - t
+    row["launches"] = bs.launch_counts()
+    if not row.get("ok") or not row.get("zero_acked_loss") or \
+            row.get("mismatches") or row.get("reconstruct_reads", 0) < 1:
+        raise AssertionError(f"degraded-read storm: {row}")
+    return row
+
+
+def harness_mixed(device: str, cache_dir) -> dict:
+    """Q4's traffic on one in-process cluster: a torch k=8 m=3 pool and
+    `.rgw.data` of the same profile made before the gateway starts, then
+    run_rados_mixed closed-loop and open-loop, run_s3_mixed and
+    run_rbd_mixed (on a replicated pool, as the harness's main does).
+    Every row must have 0 errors and ops; each row's launches are read
+    after it."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    from ceph_tpu_torch.tools import load_harness as lh
+    from ceph_tpu_torch.tools.vstart import Cluster
+    name, profile, pg_num = MIXED_POOL
+    report = {"osds": N_MIXED_OSDS, "rows": {}, "launches": {}}
+    t = time.perf_counter()
+    with Cluster(n_osds=N_MIXED_OSDS, device=device,
+                 compile_cache_dir=str(cache_dir)) as c:
+        report["boot_s"] = time.perf_counter() - t
+        client = c.client()
+        client.set_ec_profile(name, profile)
+        for pool in (name, ".rgw.data"):
+            client.create_pool(pool, "erasure", erasure_code_profile=name,
+                               pg_num=pg_num)
+        client.create_pool("hl_rbd", "replicated", size=3, pg_num=16)
+        runs = {
+            "rados_closed": lambda s: lh.run_rados_mixed(c, client, name, s),
+            "rados_open": lambda s: lh.run_rados_mixed(c, client, name, s),
+            "s3": lambda s: lh.run_s3_mixed(c, client, s),
+            "rbd": lambda s: lh.run_rbd_mixed(c, client, "hl_rbd", s)}
+        for label, run in runs.items():
+            if label == "rados_open":
+                # both rados rows write `h_<i>`: a write_full over an
+                # object that exists re-encodes it whole (K1), so the
+                # closed loop's objects go first and the open loop's
+                # 64 KiB objects are made afresh (K2's flat entry)
+                io = client.open_ioctx(name)
+                for i in range(MIXED_ROWS["rados_closed"]["n_objects"]):
+                    io.remove(f"h_{i}")
+            bs.reset_launch_counts()
+            t = time.perf_counter()
+            row = run(lh.WorkloadSpec(**MIXED_ROWS[label]))
+            row["wall_s"] = time.perf_counter() - t
+            report["launches"][label] = bs.launch_counts()
+            if row["errors"] or not row["ops"]:
+                raise AssertionError(f"{label}: {row['ops']} ops, errors "
+                                     f"{row['errors_by_type']}")
+            report["rows"][label] = row
+    return report
+
+
+def harness_child(mode: str, cache_dir: str) -> int:
+    """Q3 (`storm`) or Q4 (`mixed`) in its own process on the card: the
+    kernel library cache points at `cache_dir` before the library's
+    first load.  Prints one JSON line."""
+    from ceph_tpu_torch.ops import compile_cache
+    compile_cache.enable(cache_dir)
+    report = harness_storm("cuda") if mode == "storm" else \
+        harness_mixed("cuda", cache_dir)
+    report["compile_cache_after"] = compile_cache.status()
+    print(json.dumps(report, default=str), flush=True)
+    return 0
+
+
+def run_harness_child(mode: str, cache_dir) -> dict:
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--harness-child", mode,
+         str(cache_dir)], capture_output=True, text=True,
+        timeout=HARNESS_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"harness {mode} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-6000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    lib = res["compile_cache_after"]["kernel_library"]
+    if lib["builds_in_process"] or not res["compile_cache_after"]["enabled"]:
+        raise AssertionError(f"harness {mode} did not load the cached "
+                             f"library: {res['compile_cache_after']}")
+    return res
+
+
+def deploy_run(device: str, root, cache_dir) -> dict:
+    """Q5: `deploy apply` of DEPLOY_SPEC (a mon, 12 OSDs on BlueStore, an
+    MDS and a gateway, booted one at a time, the library from
+    `cache_dir`); `ls` shows every unit running; a torch k=8 m=3 pool
+    through the mon of monmap.json, 16 x 4 MiB written; `stop` of the
+    OSD of data shard 1 of the first object, every object read
+    degraded; a PUT and a GET of 4 MiB through rgw.0; `start` of the
+    OSD, active+clean, every object read; `rm-cluster` leaves no live
+    pid and no directory.  The deployed daemons serve no admin socket,
+    so no launch is counted here: the reads, equal to the bytes written,
+    and the units' `--device` are what show the work."""
+    import urllib.request
+
+    from ceph_tpu_torch.rados.client import RadosClient
+    from ceph_tpu_torch.tools.deploy import _alive
+    from ceph_tpu_torch.tools.proc_cluster import ProcCluster
+    here = os.path.dirname(os.path.abspath(__file__))
+    cdir = root / "cluster"
+    root.mkdir(parents=True, exist_ok=True)
+    spec_file = root / "spec.json"
+    spec_file.write_text(json.dumps(DEPLOY_SPEC))
+    env = dict(os.environ, CEPH_TPU_TORCH_COMPILE_CACHE=str(cache_dir))
+    report = {"spec": DEPLOY_SPEC, "steps": {}}
+    rng = np.random.default_rng(SEED + 19)
+
+    def deploy(*argv):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ceph_tpu_torch.tools.deploy", *argv,
+             "--dir", str(cdir)], capture_output=True, text=True, cwd=here,
+            env=env, timeout=DEPLOY_TIMEOUT_S)
+        if proc.returncode != 0:
+            logs = "".join(
+                f"\n{p.name}: {p.read_bytes()[-1500:]!r}"
+                for p in sorted(cdir.glob("*.log")))
+            raise AssertionError(f"deploy {argv} exited {proc.returncode}:"
+                                 f"\n{proc.stderr[-4000:]}{logs}")
+        return proc.stdout, time.perf_counter() - t
+
+    def units() -> dict:
+        out, _ = deploy("ls")
+        return {u["name"]: u for u in map(json.loads, out.splitlines())}
+
+    class Deployed:
+        """The deployed cluster as ProcCluster's clean-state probe reads
+        one: the mon's map and `pg stat` against every OSD unit's
+        address."""
+        _active_clean_once = ProcCluster._active_clean_once
+        wait_active_clean = ProcCluster.wait_active_clean
+
+        def __init__(self, client):
+            self.client = client
+            self.osd_procs, self.osd_addrs = [], {}
+
+        def admin(self):
+            return self.client
+
+        def refresh(self):
+            us = units()
+            n = DEPLOY_SPEC["osds"]
+            self.osd_procs = [us[f"osd.{i}"]["pid"]
+                              if us[f"osd.{i}"]["state"] == "running"
+                              else None for i in range(n)]
+            self.osd_addrs = {}
+            for i in range(n):
+                host, _, port = us[f"osd.{i}"]["addr"].rpartition(":")
+                self.osd_addrs[i] = (host, int(port))
+
+    applied = False
+    client = None
+    try:
+        out, report["apply_s"] = deploy("apply", str(spec_file),
+                                        *(["--device", "cpu"]
+                                          if device == "cpu" else []))
+        applied = True
+        rgw = next(ln.split()[-1] for ln in out.splitlines()
+                   if ln.startswith("rgw.0 serving at "))
+        us = units()
+        report["units"] = {k: u["state"] for k, u in us.items()}
+        want = {"mon.0", "mds.a", "rgw.0",
+                *(f"osd.{i}" for i in range(DEPLOY_SPEC["osds"]))}
+        if set(us) != want or any(u["state"] != "running"
+                                  for u in us.values()):
+            raise AssertionError(f"deploy ls: {report['units']}")
+        pids = [u["pid"] for u in us.values()]
+        for name, u in us.items():
+            argv = json.loads((cdir / "units" / f"{name}.json")
+                              .read_text())["argv"]
+            has = argv[-2:] == ["--device", device]
+            if has != (name.split(".")[0] in ("mon", "osd")):
+                raise AssertionError(f"{name}'s unit argv {argv}")
+        mons = json.loads((cdir / "monmap.json").read_text())["mons"]
+        client = RadosClient([(h, int(p)) for h, _, p in
+                              (m.rpartition(":") for m in mons)]).connect()
+        cluster = Deployed(client)
+        name, profile, pg_num = DEPLOY_POOL
+        client.set_ec_profile(name, profile)
+        client.create_pool(name, "erasure", erasure_code_profile=name,
+                           pg_num=pg_num)
+        io = client.open_ioctx(name)
+        expect = {f"q{i}": rng.integers(0, 256, DEPLOY_OBJECT,
+                                        dtype=np.uint8)
+                  for i in range(N_DEPLOY_OBJECTS)}
+        nbytes = len(expect) * DEPLOY_OBJECT
+
+        def read_all(what):
+            futs = {}
+
+            def submit(k):
+                futs[k] = io.aio_read(k, DEPLOY_OBJECT)
+                return futs[k]
+            _windowed([lambda k=k: submit(k) for k in expect], PROC_DEPTH)
+            for k, v in expect.items():
+                check_bytes(futs[k].result(timeout=300), v, f"{what} {k}")
+
+        def step(label, fn, nb):
+            report["steps"][label] = timed(fn, nb)
+
+        cluster.refresh()
+        step("clean_after_apply", lambda: cluster.wait_active_clean(
+            timeout=DEPLOY_CLEAN_TIMEOUT_S), 0)
+        step("write", lambda: _windowed(
+            [lambda k=k, v=v: io.aio_write_full(k, v.tobytes())
+             for k, v in expect.items()], PROC_DEPTH), nbytes)
+        objecter = client.objecter
+        pgid = objecter._calc_target(io.pool_id, "q0")[0].pgid
+        victim = objecter.osdmap.pg_to_up_acting_osds(pgid)[1][1]
+        report["victim"] = victim
+
+        def stop():
+            deploy("stop", "--name", f"osd.{victim}")
+            r, _ = client.mon_command({"prefix": "osd down", "id": victim})
+            if r != 0:
+                raise AssertionError(f"osd down {victim}: {r}")
+            deadline = time.time() + 30
+            while objecter.osdmap.is_up(victim):
+                if time.time() > deadline:
+                    raise AssertionError("the client never saw the down "
+                                         "map")
+                objecter.refresh_map(timeout=2.0)
+        step("stop", stop, 0)
+        step("degraded_read", lambda: read_all("degraded read"), nbytes)
+        body = rng.integers(0, 256, BIG, dtype=np.uint8)
+
+        def s3():
+            req = urllib.request.Request(rgw + "/qbucket", method="PUT")
+            urllib.request.urlopen(req, timeout=120).read()
+            req = urllib.request.Request(rgw + "/qbucket/big",
+                                         data=body.tobytes(), method="PUT")
+            urllib.request.urlopen(req, timeout=120).read()
+            with urllib.request.urlopen(rgw + "/qbucket/big",
+                                        timeout=120) as resp:
+                check_bytes(resp.read(), body, "rgw.0 GET")
+        step("rgw_put_get", s3, 2 * BIG)
+
+        def start():
+            deploy("start", "--name", f"osd.{victim}")
+            cluster.refresh()
+            cluster.wait_active_clean(timeout=DEPLOY_CLEAN_TIMEOUT_S)
+        step("start_to_clean", start, 0)
+        step("read_after_start", lambda: read_all("read after start"),
+             nbytes)
+        client.shutdown()
+        client = None
+        _, report["rm_cluster_s"] = deploy("rm-cluster")
+        applied = False
+        time.sleep(0.5)
+        alive = [p for p in pids if _alive(p)]
+        if alive or cdir.exists():
+            raise AssertionError(f"rm-cluster left pids {alive}, directory "
+                                 f"{cdir.exists()}")
+    finally:
+        if client is not None:
+            client.shutdown()
+        if applied:
+            subprocess.run(
+                [sys.executable, "-m", "ceph_tpu_torch.tools.deploy",
+                 "rm-cluster", "--dir", str(cdir)], capture_output=True,
+                cwd=here, env=env, timeout=DEPLOY_TIMEOUT_S)
+    return report
+
+
+def phase_harness(tmp) -> tuple[dict, dict]:
+    """Phase Q: the load harness and the deployer on the card.  Returns
+    (its launch counts, Q2's, Q3's and Q4's summed; the report)."""
+    from ceph_tpu_torch.ops import _build
+    root = tmp / "harness"
+    cache_dir = root / "cache"
+    cache_dir.mkdir(parents=True)
+    shutil.copy2(_build.library_path(), cache_dir)
+    card = nvidia_smi_line()
+    report, walls, total = {"card": card}, {}, {}
+    t_q = time.perf_counter()
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    t = time.perf_counter()
+    report["sims"] = harness_sims()
+    walls["Q1"] = time.perf_counter() - t
+    print("# harness Q1 sims: " + "; ".join(
+        f"{s} isolated, ratio {r['qos_isolation_ratio']} (no QoS "
+        f"{r['no_qos_ratio']}), {r['wall_s']:.2f} s"
+        for s, r in report["sims"].items()), flush=True)
+
+    t = time.perf_counter()
+    counts, sweep = harness_pg_sweep("cuda")
+    walls["Q2"] = time.perf_counter() - t
+    add(counts)
+    report["pg_sweep"], report["pg_sweep_launches"] = sweep, counts
+    print(f"# harness Q2 ec-pg-sweep ({card}): agg GB/s {sweep['agg_GBps']}, "
+          f"degradation_frac {sweep['degradation_frac']} (the reference "
+          f"gates 0.8; not gated here), launches {sweep['launches']}, "
+          f"runs/launch {sweep['runs_per_launch']}, cross-PG "
+          f"{sweep['cross_pg_launches']}, occupancy "
+          f"{sweep['occupancy_pct']}%; by kernel {counts}", flush=True)
+
+    # Q5's deploy boots its 15 daemons one at a time (about two minutes
+    # on the card, mostly each process's start), so it runs beside Q3
+    # and Q4, whose clusters live in children of their own: the phase
+    # keeps to its share of the script's time
+    dep_cache = root / "deploy_cache"
+    dep_cache.mkdir()
+    shutil.copy2(_build.library_path(), dep_cache)
+    q5 = {}
+
+    def deploy_q5():
+        t = time.perf_counter()
+        try:
+            q5["report"] = deploy_run("cuda", root / "deploy", dep_cache)
+        except BaseException as e:  # noqa: BLE001 - raised after the join
+            q5["error"] = e
+        q5["wall_s"] = time.perf_counter() - t
+    q5_thread = threading.Thread(target=deploy_q5, name="phase-q5")
+    q5_thread.start()
+
+    try:
+        t = time.perf_counter()
+        storm = run_harness_child("storm", cache_dir)
+        walls["Q3"] = time.perf_counter() - t
+        add(storm["launches"])
+        report["storm"] = storm
+        st = storm["stages"]
+        print(f"# harness Q3 degraded-read storm ({card}): read p50 "
+              f"{storm['read_p50_ms']} p99 {storm['read_p99_ms']} p999 "
+              f"{storm['read_p999_ms']} ms over {storm['read_ops']} reads, "
+              f"reconstruct_reads {storm['reconstruct_reads']}, ledger "
+              f"{storm['degraded_ledger']}, stages "
+              + json.dumps({k: st.get(k) for k in ("ec_batch_wait",
+                                                   "launch_device",
+                                                   "launch_submit")})
+              + f", {storm['duration_s']} s; launches {storm['launches']}",
+              flush=True)
+
+        t = time.perf_counter()
+        mixed = run_harness_child("mixed", cache_dir)
+        walls["Q4"] = time.perf_counter() - t
+        for counts in mixed["launches"].values():
+            add(counts)
+        report["mixed"] = mixed
+        print(f"# harness Q4 mixed ({card}): boot {mixed['boot_s']:.2f} s; "
+              + "; ".join(
+                  f"{k} {r['ops']} ops p50 {r['p50_ms']} p99 {r['p99_ms']} "
+                  f"p999 {r['p999_ms']} ms ({r['wall_s']:.1f} s) launches "
+                  f"{ {n: v for n, v in mixed['launches'][k].items() if v} }"
+                  for k, r in mixed["rows"].items()), flush=True)
+    finally:
+        # the deploy's daemons go before the run's directory does
+        q5_thread.join()
+    if "error" in q5:
+        raise q5["error"]
+    walls["Q5 (beside Q3 and Q4)"] = q5["wall_s"]
+    dep = report["deploy"] = q5["report"]
+    print(f"# harness Q5 deploy ({card}): apply {dep['apply_s']:.2f} s "
+          f"(15 units, one at a time, beside Q3 and Q4), victim "
+          f"osd.{dep['victim']}; "
+          + "; ".join(f"{k} {v['GBps']:.4f} GB/s ({v['wall_s']:.3f} s)"
+                      for k, v in dep["steps"].items())
+          + f"; rm-cluster {dep['rm_cluster_s']:.2f} s (no launch "
+          f"counted: the deployed daemons serve no admin socket)",
+          flush=True)
+
+    missing = [k for k in ("fused_hier_acc_call", "gf_encode_with_crc_w32",
+                           "gf_bitmatmul") if total.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"phase Q missed kernels {missing}: {total}")
+    report["walls_s"] = walls
+    report["launch_totals"] = total
+    print(f"# harness walls {json.dumps(walls)}, phase Q "
+          f"{time.perf_counter() - t_q:.1f} s; launches {total}", flush=True)
+    return total, report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4406,6 +4921,13 @@ def main() -> int:
     dev = resolve_device("cuda")
     print(nvidia_smi_line(), flush=True)
     t0 = time.perf_counter()
+    walls, mark = {}, [t0]
+
+    def lap(name: str) -> None:
+        """The wall of the phases since the last lap."""
+        now = time.perf_counter()
+        walls[name] = round(now - mark[0], 1)
+        mark[0] = now
     _build.build()
     print(f"# kernels built in {time.perf_counter() - t0:.1f} s "
           f"({_build.library_path().name})", flush=True)
@@ -4420,6 +4942,7 @@ def main() -> int:
         k3_table, rows)
     bs._encode_crc_launch.narrow_launches = 0
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    lap("build, kernels, K3 and K2 tables")
     try:
         pin_point(tmp / "pinned_xla.json", dev,
                   dict(autotune.default_point(), combine="xla"))
@@ -4437,6 +4960,7 @@ def main() -> int:
         counts["w32_sweep"], w32_rows = phase_w32_sweep()
         k1_table = k1_thread_bytes_table(dev, rng)
         counts["clay_repair"], clay = phase_clay_repair(dev, rng)
+        lap("2-8 (write paths, A-E, G)")
         pin_point(tmp / "pinned_storm.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         storm_counts, storm = phase_recovery_storm(dev, rng)
@@ -4446,22 +4970,33 @@ def main() -> int:
                   dict(autotune.default_point(), combine="kernel"))
         boot_report = phase_boot()
         mesh_counts, mesh = phase_mesh(dev, rng)
+        lap("H-K")
         pin_point(tmp / "pinned_cluster.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         cluster_counts, cluster = phase_cluster(tmp)
+        lap("L")
         pin_point(tmp / "pinned_proc.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         proc_counts, proc = phase_proc_cluster(tmp)
+        lap("M")
         pin_point(tmp / "pinned_rbd.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         rbd_counts, rbd = phase_block_service(tmp)
+        lap("N")
         pin_point(tmp / "pinned_fs.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         fs_counts, fs_report = phase_file_service(tmp)
+        lap("O")
         pin_point(tmp / "pinned_rgw.json", dev,
                   dict(autotune.default_point(), combine="kernel"))
         rgw_counts, rgw_zone_counts, rgw_report = phase_object_service(tmp)
+        lap("P")
+        pin_point(tmp / "pinned_harness.json", dev,
+                  dict(autotune.default_point(), combine="kernel"))
+        harness_counts, harness = phase_harness(tmp)
+        lap("Q")
         ab = phase_ab()
+        lap("F")
         narrow_launches = bs._encode_crc_launch.narrow_launches
     finally:
         os.environ.pop("CEPH_TPU_AUTOTUNE_CACHE", None)
@@ -4476,7 +5011,8 @@ def main() -> int:
                             ("N", rbd_counts), ("O", fs_counts),
                             ("O's cluster_bench", bench_counts),
                             ("P", rgw_counts),
-                            ("P's secondary zone", rgw_zone_counts)):
+                            ("P's secondary zone", rgw_zone_counts),
+                            ("Q", harness_counts)):
         unheld = [k for k, n in launched.items() if n and k not in held]
         if unheld:
             raise AssertionError(f"phase {phase} launched {unheld}, which "
@@ -4496,6 +5032,8 @@ def main() -> int:
             row["block_service_launches"] = None
             row["file_service_launches"] = None
             row["object_service_launches"] = None
+            # phase Q counts K2's entries in its own process and children
+            row["harness_launches"] = None
             continue
         row["launches"] = counts[phase][counter]
         row["recovery_storm_launches"] = sum(
@@ -4507,6 +5045,7 @@ def main() -> int:
         row["file_service_launches"] = fs_counts.get(counter, 0)
         row["object_service_launches"] = rgw_counts.get(counter, 0) + \
             rgw_zone_counts.get(counter, 0)
+        row["harness_launches"] = harness_counts.get(counter, 0)
         if row["launches"] <= 0:
             raise AssertionError(f"{row['name']} was not launched on its "
                                  f"phase ({phase})")
@@ -4540,6 +5079,9 @@ def main() -> int:
     print(json.dumps({"file_service": fs_report, "cluster_bench": bench}),
           flush=True)
     print(json.dumps({"object_service": rgw_report}), flush=True)
+    print(json.dumps({"harness": harness}, default=str), flush=True)
+    print(f"# phase walls (s): {json.dumps(walls)}", flush=True)
+    print(json.dumps({"phase_walls_s": walls}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}), flush=True)
@@ -4551,4 +5093,6 @@ if __name__ == "__main__":
         sys.exit(boot_child(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--cluster-child":
         sys.exit(cluster_child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--harness-child":
+        sys.exit(harness_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

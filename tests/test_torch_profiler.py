@@ -3,9 +3,9 @@ tests/test_profiler.py, replayed on the port: the launch ring, the
 disabled fast path through a real backend, compile attribution and the
 storm window, trace stitching through the launch queue, the heartbeat
 tick-lag detector, the mon's COMPILE_STORM check and the exporter's
-launch-latency gauges.  Its backends run the torch plugin on the CPU
-where the reference's run the jax plugin.  Its asok round-trip case
-waits for `tools/load_harness`."""
+launch-latency gauges, and the asok round trip with the per-stage blame
+of tools/load_harness on a live cluster.  Its backends run the torch
+plugin on the CPU where the reference's run the jax plugin."""
 
 import pytest
 
@@ -39,6 +39,7 @@ PROFILER = ported("test_profiler", subs=[
     "test_trace_stitching_depth2_pipelined_batch",
     "test_hb_tick_lag_detector_with_injected_stall",
     "test_hb_tick_lag_unit", "test_compile_storm_health_check",
-    "test_exporter_emits_lat_launch_percentile_gauges"])
+    "test_exporter_emits_lat_launch_percentile_gauges",
+    "test_cluster_asok_roundtrip_and_stage_blame"])
 def test_profiler_replay(case, tmp_path):
     run_case(PROFILER, case, tmp_path=tmp_path)
