@@ -47,10 +47,16 @@ Layer map:
   csrc/     CUDA C++ kernels (sm_90a)
 
 Entry points run on the card unless the caller asks for the CPU
-(`device="cpu"`); asking for CUDA without a GPU raises.
+(`device="cpu"`); asking for CUDA without a GPU raises.  The first CPU
+resolve in a process sets torch's intra-op threads to one, unless the
+environment sets OMP_NUM_THREADS: the plain versions are series of
+small ops, and the callers (daemon op threads, launch-queue workers,
+clients) already run them side by side (`resolve_device`).
 """
 
 from __future__ import annotations
+
+import os
 
 __version__ = "0.1.0"
 
@@ -59,10 +65,22 @@ __version__ = "0.1.0"
 PLUGIN_ABI_VERSION = "ceph-tpu-torch-plugin-1"
 
 
+_cpu_threads_set = False
+
+
 def resolve_device(device: "str | torch.device" = "cuda") -> "torch.device":
     """The torch.device an entry point runs on.  "cuda" resolves to the
     current card's indexed device; a CUDA request on a machine without
-    a usable GPU raises instead of quietly running on the CPU."""
+    a usable GPU raises instead of quietly running on the CPU.
+
+    The first "cpu" resolve in a process sets torch's intra-op threads
+    to one; an OMP_NUM_THREADS in the environment is the process's own
+    choice and keeps its count.  The parallelism of the CPU path is its
+    callers' threads: with torch's default of one OpenMP thread a core,
+    every caller opens a parallel region of its own and a loaded host's
+    cores are oversubscribed.  The plain versions are integer and mod-2
+    arithmetic, so their outputs do not depend on the count."""
+    global _cpu_threads_set
     import torch      # not at import: the client tools never touch it
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -74,4 +92,8 @@ def resolve_device(device: "str | torch.device" = "cuda") -> "torch.device":
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {str(device)!r}")
+    elif not _cpu_threads_set:
+        _cpu_threads_set = True
+        if "OMP_NUM_THREADS" not in os.environ:
+            torch.set_num_threads(1)
     return dev

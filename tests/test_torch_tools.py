@@ -6,9 +6,11 @@ ledger's asok and exporter surfaces, the progress module through
 asok through the `ceph_cli` three-word fold)."""
 
 import contextlib
+import copy
 import io
 import json
 import re
+import time
 
 import numpy as np
 import pytest
@@ -131,7 +133,19 @@ def _cli(cli, c, words):
 def twin_clusters():
     """A reference cluster and a port cluster built alike: 4 OSDs, an
     EC pool of k=2 m=1 on each package's card plugin, a replicated
-    pool, active+clean."""
+    pool, active+clean.
+
+    Both start from the same state: each package's host flight recorder
+    is dropped first.  The first OSD to boot on a recorder ships the
+    recorder's 60 s window of jit compiles to the mon (COMPILE_STORM),
+    so a recorder left by an earlier test of this process, with that
+    test's compiles in its window and no OSD yet, would warn in the
+    reference cluster's `health` under load; the port's plain versions
+    compile nothing."""
+    from ceph_tpu.ops.profiler import DeviceProfiler as JProfiler
+    from ceph_tpu_torch.ops.profiler import DeviceProfiler
+    JProfiler.reset_host()
+    DeviceProfiler.reset_host()
     with JCluster(n_osds=4) as jc, Cluster(n_osds=4, device="cpu") as tc:
         for c, plugin in ((jc, "jax"), (tc, "torch")):
             cl = c.client()
@@ -162,6 +176,115 @@ def test_ceph_cli_answers_as_the_reference(twin_clusters, words):
         assert set(tout) - set(jout) == PORT_PG_STAT_KEYS
         tout = {k: v for k, v in tout.items() if k not in PORT_PG_STAT_KEYS}
     assert tout == jout
+
+
+# -- `health` on the same reports ---------------------------------------------
+
+HEALTH_NOW = 1_700_000_000.0
+
+# below the thresholds or stale, in every case: they must raise nothing
+HEALTH_NOISE = {
+    "slow": {7: {"count": 3, "total_slow": 3, "oldest_age": 9.0,
+                 "ops": [], "ts": HEALTH_NOW - 121.0}},
+    "pg": {
+        5: {"degraded_pgs": 4, "ts": HEALTH_NOW - 11.0},
+        6: {"degraded_pgs": 0, "misplaced": 0, "unfound": 0,
+            "compile": {"window_s": 60.0, "compile_s": 4.9, "stalls": 3,
+                        "worst_bucket": "x:xla:w4096:r2", "worst_s": 2.0,
+                        "budget_s": 5.0},
+            "msgr": {"window_s": 30.0, "lag_events": 1,
+                     "worst_lag_s": 0.5, "worst_reactor": 0,
+                     "warn_s": 1.0},
+            "ts": HEALTH_NOW - 1.0}},
+}
+
+HEALTH_REPORTS = {
+    "SLOW_OPS": ("slow", {
+        0: {"count": 2, "total_slow": 5, "oldest_age": 42.5, "ops": [
+            {"type": "osd_op", "desc": "write o1", "age": 42.5,
+             "blamed_stage": "ec_batch_wait", "trace_id": "t1",
+             "primary": 2},
+            {"type": "osd_op", "desc": "read o2", "age": 12.0,
+             "blamed_stage": "launch_device", "trace_id": "t2"}],
+            "ts": HEALTH_NOW - 1.0},
+        1: {"count": 1, "total_slow": 1, "oldest_age": 3.25,
+            "ts": HEALTH_NOW - 2.0}}),
+    "PG_DEGRADED": ("pg", {
+        1: {"degraded_pgs": 3, "misplaced": 4, "unfound": 1,
+            "ledger": {"degraded_oldest_since": HEALTH_NOW - 30.25},
+            "ts": HEALTH_NOW - 2.0},
+        2: {"degraded_pgs": 0, "misplaced": 2, "ts": HEALTH_NOW - 1.0}}),
+    "COMPILE_STORM": ("pg", {
+        3: {"compile": {"window_s": 60.0, "compile_s": 8.276, "stalls": 9,
+                        "worst_bucket": "x:xla:w2048:r1", "worst_s": 1.9,
+                        "budget_s": 5.0},
+            "ts": HEALTH_NOW - 1.0}}),
+    "MSGR_REACTOR_LAG": ("pg", {
+        4: {"msgr": {"window_s": 30.0, "lag_events": 4,
+                     "worst_lag_s": 1.75, "worst_reactor": 1,
+                     "warn_s": 1.0},
+            "ts": HEALTH_NOW - 1.0}}),
+}
+
+
+class _FixedClock:
+    """The `time` module with `time()` held at one instant."""
+
+    def __init__(self, now: float):
+        self.now = now
+
+    def time(self) -> float:
+        return self.now
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+@pytest.fixture(scope="module")
+def lone_monitors():
+    """A reference and a port monitor, each alone on loopback (port 0,
+    no OSDs)."""
+    from ceph_tpu.mon import Monitor as JMonitor
+    from ceph_tpu_torch.mon import Monitor
+    jmon, tmon = JMonitor(), Monitor(device="cpu")
+    try:
+        yield jmon, tmon
+    finally:
+        jmon.shutdown()
+        tmon.shutdown()
+
+
+@pytest.mark.parametrize("raised", [
+    (), ("SLOW_OPS",), ("PG_DEGRADED",), ("COMPILE_STORM",),
+    ("MSGR_REACTOR_LAG",),
+    ("SLOW_OPS", "PG_DEGRADED", "COMPILE_STORM", "MSGR_REACTOR_LAG")],
+    ids=lambda r: "+".join(r) or "none")
+def test_health_checks_equal_on_the_same_reports(lone_monitors, raised,
+                                                 monkeypatch):
+    """Both monitors' `_cmd_health` on the same injected slow-op and
+    pg-stat reports, at the same `time.time`, answer exactly alike and
+    raise just the checks the reports call for."""
+    import ceph_tpu.mon.monitor as jmod
+    import ceph_tpu_torch.mon.monitor as tmod
+    slow, pg = dict(HEALTH_NOISE["slow"]), dict(HEALTH_NOISE["pg"])
+    for check in raised:
+        table, reports = HEALTH_REPORTS[check]
+        (slow if table == "slow" else pg).update(reports)
+    answers = []
+    for mod, mon in zip((jmod, tmod), lone_monitors):
+        with mon.lock:
+            mon.slow_op_reports.clear()
+            mon.slow_op_reports.update(copy.deepcopy(slow))
+            mon.pg_stat_reports.clear()
+            mon.pg_stat_reports.update(copy.deepcopy(pg))
+        with monkeypatch.context() as mp:
+            mp.setattr(mod, "time", _FixedClock(HEALTH_NOW))
+            answers.append(mon._cmd_health())
+    (jrc, jout), (trc, tout) = answers
+    assert trc == jrc == 0
+    assert tout == jout
+    assert tout["status"] == ("HEALTH_WARN" if raised else "HEALTH_OK")
+    assert set(tout["checks"]) == set(raised)
 
 
 def test_fs_commands_list_the_filesystem_and_its_mds(twin_clusters):
