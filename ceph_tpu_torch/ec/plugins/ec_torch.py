@@ -21,7 +21,11 @@ is then not consulted.
 The device-resident entries (`encode_chunks_device`, `encode_stripes`,
 `decode_chunks_device`, `encode_words_with_crc`) take and return
 tensors on the codec's device, with no host staging: the contract of
-Pallas kernel #5 (`_gf_kernel`), served by K1.
+Pallas kernel #5 (`_gf_kernel`), served by K1.  While a torch.profiler
+session records, `encode_chunks_device`, `encode_stripes` and
+`decode_chunks_device` open their K1 launch's `prep` stage at their
+first line, so the plan lookup counts in it (ops/bitsliced
+`launch_stages`).
 
 Decode: the (survivors -> erased) coefficient matrix is computed on the
 host (Gauss-Jordan, cached by erasure signature like the reference's
@@ -36,6 +40,7 @@ import threading
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _profiler
 
 from ... import resolve_device
 from ...ops import bitsliced as bs
@@ -124,19 +129,31 @@ class ErasureCodeTorch(ErasureCode):
         """Device-resident encode: (k, N) uint8 on the codec's device ->
         (m, N) parity, one K1 launch, any N.  No host transfer; for
         benchmarks and pipelines holding device tensors."""
-        return bs.gf_bitmatmul(self._enc_tables, chunks)
+        st = _profiler._is_profiler_enabled and \
+            bs.launch_stage_enter("gf_bitmatmul", self.device)
+        try:
+            return bs.gf_bitmatmul(self._enc_tables, chunks)
+        finally:
+            if st:
+                st.exit()
 
     def encode_stripes(self, stripes: torch.Tensor) -> torch.Tensor:
         """Batched encode: (B, k, C) uint8 on the device -> (B, m, C) in
         one K1 launch.  The batch rides the byte axis: the stripes are
         laid out as (k, B*C) so every stripe's chunk j lands in row j.
         Returns a permuted view of the (m, B*C) launch output."""
-        b, k, c = stripes.shape
-        if k != self.k:
-            raise ValueError(f"stripes have k={k}, the codec k={self.k}")
-        flat = stripes.permute(1, 0, 2).reshape(k, b * c)
-        par = bs.gf_bitmatmul(self._enc_tables, flat)
-        return par.reshape(self.m, b, c).permute(1, 0, 2)
+        st = _profiler._is_profiler_enabled and \
+            bs.launch_stage_enter("gf_bitmatmul", self.device)
+        try:
+            b, k, c = stripes.shape
+            if k != self.k:
+                raise ValueError(f"stripes have k={k}, the codec k={self.k}")
+            flat = stripes.permute(1, 0, 2).reshape(k, b * c)
+            par = bs.gf_bitmatmul(self._enc_tables, flat)
+            return par.reshape(self.m, b, c).permute(1, 0, 2)
+        finally:
+            if st:
+                st.exit()
 
     def fused_point(self) -> dict:
         """The fused write path's (tile, wb, extract, combine) operating
@@ -251,8 +268,14 @@ class ErasureCodeTorch(ErasureCode):
         """Device-resident decode: `chunks` (k, N) survivor rows in
         `survivors` order on the codec's device -> the reconstructed
         `targets` rows (len(targets), N), one K1 launch."""
-        _, tables = self._decode_plan(tuple(survivors), tuple(targets))
-        return bs.gf_bitmatmul(tables, chunks)
+        st = _profiler._is_profiler_enabled and \
+            bs.launch_stage_enter("gf_bitmatmul", self.device)
+        try:
+            _, tables = self._decode_plan(tuple(survivors), tuple(targets))
+            return bs.gf_bitmatmul(tables, chunks)
+        finally:
+            if st:
+                st.exit()
 
     def decode_chunks(self, dense: np.ndarray, erasures) -> np.ndarray:
         n = self.get_chunk_count()

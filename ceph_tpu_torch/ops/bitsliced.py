@@ -55,16 +55,28 @@ returned as int64 tensors because torch's uint32 support is partial).
 A wrapper launches its kernel for CUDA tensors and runs the plain
 version for CPU tensors — only because the tensors lie on the CPU;
 there is no fallback from a failed build or launch.  Each wrapper
-counts its kernel launches in a plain integer attribute (`.launches`).
+counts its kernel launches in a plain integer attribute (`.launches`,
+read by `launch_counts()`).  While a torch.profiler session records in
+the process, each launch on the card is also split into two stages
+(`launch_stages()`, `LaunchStage`): `prep`, from the first line of the
+outermost instrumented entry (a wrapper, or the codec's
+`decode_chunks_device`, `encode_chunks_device`, `encode_stripes`) to
+just before the C call, and `launch`, the library load, the stream
+handle, the pointers and the C call up to its return-code check.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
+import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast as _span
+from torch.autograd import profiler as _profiler
 
 from . import crc32c_linear as cl
 
@@ -131,6 +143,87 @@ def _check_operands(tables, chunks) -> tuple[int, int, int]:
 
 def _stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ----------------------------------------------------------------------------
+# launch stages: prep and launch, armed while torch.profiler records
+# ----------------------------------------------------------------------------
+
+_stage_tls = threading.local()
+_stage_seq = itertools.count(1)
+_stage_lock = threading.Lock()
+
+
+class LaunchStage:
+    """The clocks and spans of one armed launch.  `prep` runs from the
+    outermost entry's first line to launch(), just before the C call;
+    `launch` from there to launched(), after its return-code check.
+    Each stage is a profiler span, `ec.prep` then `ec.launch`, whose
+    args name the wrapper and the launch's number (one count of armed
+    launches in the process; the trace shows args where it records
+    shapes), and a perf_counter_ns interval taken inside the span,
+    added to launch_stages() when the launch has returned.  The spans
+    are torch's C++ record function (category `cpu_op`), not Python's
+    `record_function`, which under the profiler costs several times as
+    much a span.
+    A stage lives in a thread-local while its outermost entry runs, so
+    a wrapper called inside a codec entry joins the entry's prep; an
+    entry makes one launch.  An entry left before its launch (an empty
+    width, a refused operand, a failed launch) closes its span and
+    counts nothing."""
+
+    __slots__ = ("wrapper", "args", "depth", "span", "t0", "prep_ns")
+
+    def __init__(self, wrapper: str):
+        self.wrapper = wrapper
+        self.args = {"wrapper": wrapper, "launch": next(_stage_seq)}
+        self.depth = 1
+        self.prep_ns = 0
+        self.span = _span("ec.prep", [], self.args)
+        self.span.__enter__()
+        self.t0 = time.perf_counter_ns()
+
+    def launch(self) -> None:
+        self.prep_ns = time.perf_counter_ns() - self.t0
+        self.span.__exit__(None, None, None)
+        self.span = _span("ec.launch", [], self.args)
+        self.span.__enter__()
+        self.t0 = time.perf_counter_ns()
+
+    def launched(self) -> None:
+        launch_ns = time.perf_counter_ns() - self.t0
+        self.span.__exit__(None, None, None)
+        self.span = None
+        with _stage_lock:
+            tot = _stage_totals[self.wrapper]
+            tot[0] += 1
+            tot[1] += self.prep_ns
+            tot[2] += launch_ns
+
+    def exit(self) -> None:
+        self.depth -= 1
+        if self.depth:
+            return
+        _stage_tls.stage = None
+        if self.span is not None:
+            self.span.__exit__(None, None, None)
+
+
+def launch_stage_enter(wrapper: str, where) -> LaunchStage | None:
+    """The armed first line of an instrumented entry, which calls it
+    only after reading torch.profiler's flag: the thread's open stage,
+    joined, or a new one for `wrapper`'s launch; None where `where` (a
+    tensor or a device) is not on a CUDA card, whose path launches
+    nothing.  The caller ends it with exit() however it leaves."""
+    dev = where.device if isinstance(where, torch.Tensor) else where
+    if getattr(dev, "type", None) != "cuda":
+        return None
+    st = getattr(_stage_tls, "stage", None)
+    if st is not None:
+        st.depth += 1
+        return st
+    st = _stage_tls.stage = LaunchStage(wrapper)
+    return st
 
 
 # ----------------------------------------------------------------------------
@@ -249,27 +342,38 @@ def gf_bitmatmul(tables: torch.Tensor, chunks: torch.Tensor,
     blocks (tools/w32_sweep sweeps it); `thread_bytes` (4 or 16) forces
     the bytes of each row a thread takes, which k1_launch otherwise
     picks from the width."""
-    r, k, n = _check_operands(tables, chunks)
-    tile_b = _check_tile(tile, n)
-    if thread_bytes not in (None, 4, 16):
-        raise ValueError(f"thread_bytes must be 4 or 16, got {thread_bytes}")
-    dev = chunks.device
-    if dev.type == "cpu":
-        return gf_bitmatmul_plain(tables, chunks)
-    stage_groups, _ = k1_smem(r, k)
-    out = torch.empty((r, n), dtype=torch.uint8, device=dev)
-    if n == 0:
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("gf_bitmatmul", chunks)
+    try:
+        r, k, n = _check_operands(tables, chunks)
+        tile_b = _check_tile(tile, n)
+        if thread_bytes not in (None, 4, 16):
+            raise ValueError(f"thread_bytes must be 4 or 16, got "
+                             f"{thread_bytes}")
+        dev = chunks.device
+        if dev.type == "cpu":
+            return gf_bitmatmul_plain(tables, chunks)
+        stage_groups, _ = k1_smem(r, k)
+        out = torch.empty((r, n), dtype=torch.uint8, device=dev)
+        if n == 0:
+            return out
+        tb, blocks = k1_launch(n, k, r, _sm_count(dev), tile_b, thread_bytes)
+        if st:
+            st.launch()
+        from . import _build
+        lib = _build.load()
+        rc = lib.ctt_gf_bitmatmul(tables.data_ptr(), chunks.data_ptr(),
+                                  out.data_ptr(), r, k, n, tile_b, tb, blocks,
+                                  stage_groups, _stream_handle(dev))
+        if rc != 0:
+            raise RuntimeError(f"gf_bitmatmul launch failed: CUDA error {rc}")
+        if st:
+            st.launched()
+        gf_bitmatmul.launches += 1
         return out
-    tb, blocks = k1_launch(n, k, r, _sm_count(dev), tile_b, thread_bytes)
-    from . import _build
-    lib = _build.load()
-    rc = lib.ctt_gf_bitmatmul(tables.data_ptr(), chunks.data_ptr(),
-                              out.data_ptr(), r, k, n, tile_b, tb, blocks,
-                              stage_groups, _stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"gf_bitmatmul launch failed: CUDA error {rc}")
-    gf_bitmatmul.launches += 1
-    return out
+    finally:
+        if st:
+            st.exit()
 
 
 gf_bitmatmul.launches = 0
@@ -390,27 +494,37 @@ def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
     ragged too.  `tile` as for K1.  CUDA tensors launch
     csrc/gf_bitmatmul_stream.cu with k4_plan's grid; CPU tensors run
     gf_bitmatmul_stream_plain."""
-    r, k, n = _check_operands(tables, chunks)
-    tile_b = _check_tile(tile, n)
-    _pass_rows(k, groups)
-    dev = chunks.device
-    if dev.type == "cpu":
-        return gf_bitmatmul_stream_plain(tables, chunks, groups)
-    out = torch.empty((r, n), dtype=torch.uint8, device=dev)
-    if n == 0 or r == 0:
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("gf_bitmatmul_stream", chunks)
+    try:
+        r, k, n = _check_operands(tables, chunks)
+        tile_b = _check_tile(tile, n)
+        _pass_rows(k, groups)
+        dev = chunks.device
+        if dev.type == "cpu":
+            return gf_bitmatmul_stream_plain(tables, chunks, groups)
+        out = torch.empty((r, n), dtype=torch.uint8, device=dev)
+        if n == 0 or r == 0:
+            return out
+        plan = k4_plan(r, k, n, _sm_count(dev), tile_b or None, groups)
+        if st:
+            st.launch()
+        from . import _build
+        lib = _build.load()
+        rc = lib.ctt_gf_bitmatmul_stream(
+            tables.data_ptr(), chunks.data_ptr(), out.data_ptr(), r, k, n,
+            tile_b, plan.thread_bytes, plan.groups_per_block,
+            plan.rows_per_pass, plan.col_blocks, _stream_handle(dev))
+        if rc != 0:
+            raise RuntimeError(f"gf_bitmatmul_stream launch failed: CUDA "
+                               f"error {rc}")
+        if st:
+            st.launched()
+        gf_bitmatmul_stream.launches += 1
         return out
-    plan = k4_plan(r, k, n, _sm_count(dev), tile_b or None, groups)
-    from . import _build
-    lib = _build.load()
-    rc = lib.ctt_gf_bitmatmul_stream(
-        tables.data_ptr(), chunks.data_ptr(), out.data_ptr(), r, k, n,
-        tile_b, plan.thread_bytes, plan.groups_per_block,
-        plan.rows_per_pass, plan.col_blocks, _stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"gf_bitmatmul_stream launch failed: CUDA error "
-                           f"{rc}")
-    gf_bitmatmul_stream.launches += 1
-    return out
+    finally:
+        if st:
+            st.exit()
 
 
 gf_bitmatmul_stream.launches = 0
@@ -468,7 +582,9 @@ def _check_encode_crc(tables, chunks, block: int) -> None:
                          f"width multiple of the block ({n} % {block})")
 
 
-def _encode_crc_launch(tables, chunks, block: int):
+def _encode_crc_launch(tables, chunks, block: int, st):
+    """K2's launch for its three entries; `st` is the entry's armed
+    LaunchStage, or a false value."""
     m, k, n = _check_operands(tables, chunks)
     dev = chunks.device
     _crc_smem_bytes(m, k, block)
@@ -476,6 +592,8 @@ def _encode_crc_launch(tables, chunks, block: int):
     lout = torch.empty((k + m, n // block), dtype=torch.int64, device=dev)
     if n == 0:
         return parity, lout, False
+    if st:
+        st.launch()
     from . import _build
     lib = _build.load()
     ops = _k3_ops_tensor(block, dev)
@@ -485,6 +603,8 @@ def _encode_crc_launch(tables, chunks, block: int):
                                _stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"gf_encode_crc launch failed: CUDA error {rc}")
+    if st:
+        st.launched()
     if not k2_lane_tables(m, k, block):
         _encode_crc_launch.narrow_launches += 1
     return parity, lout, True
@@ -499,13 +619,19 @@ def fused_hier_call(tables: torch.Tensor, chunks: torch.Tensor,
     """K2, hier entry (contract of Pallas kernel #1): parity (m, N)
     uint8 and the L of every 4*wb-byte sub-block of all k+m rows,
     (k+m, N // (4*wb)) int64 in stream order."""
-    _check_encode_crc(tables, chunks, 4 * wb)
-    if chunks.device.type == "cpu":
-        return fused_hier_call_plain(tables, chunks, wb)
-    parity, ls, launched = _encode_crc_launch(tables, chunks, 4 * wb)
-    if launched:
-        fused_hier_call.launches += 1
-    return parity, ls
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("fused_hier_call", chunks)
+    try:
+        _check_encode_crc(tables, chunks, 4 * wb)
+        if chunks.device.type == "cpu":
+            return fused_hier_call_plain(tables, chunks, wb)
+        parity, ls, launched = _encode_crc_launch(tables, chunks, 4 * wb, st)
+        if launched:
+            fused_hier_call.launches += 1
+        return parity, ls
+    finally:
+        if st:
+            st.exit()
 
 
 fused_hier_call.launches = 0
@@ -516,13 +642,19 @@ def gf_encode_with_crc_w32(tables: torch.Tensor, chunks: torch.Tensor,
     """K2, flat entry (contract of Pallas kernel #2): parity (m, N)
     uint8 and one L per `tile` bytes of all k+m rows, (k+m, N // tile)
     int64."""
-    _check_encode_crc(tables, chunks, tile)
-    if chunks.device.type == "cpu":
-        return gf_encode_with_crc_w32_plain(tables, chunks, tile)
-    parity, ls, launched = _encode_crc_launch(tables, chunks, tile)
-    if launched:
-        gf_encode_with_crc_w32.launches += 1
-    return parity, ls
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("gf_encode_with_crc_w32", chunks)
+    try:
+        _check_encode_crc(tables, chunks, tile)
+        if chunks.device.type == "cpu":
+            return gf_encode_with_crc_w32_plain(tables, chunks, tile)
+        parity, ls, launched = _encode_crc_launch(tables, chunks, tile, st)
+        if launched:
+            gf_encode_with_crc_w32.launches += 1
+        return parity, ls
+    finally:
+        if st:
+            st.exit()
 
 
 gf_encode_with_crc_w32.launches = 0
@@ -559,13 +691,19 @@ def gf_encode_with_crc(tables: torch.Tensor, chunks: torch.Tensor,
     uint8 and one L per `tile` bytes of all k+m rows, (k+m, N // tile)
     int64.  The write path's "bytes" branch (use_w32=False) launches it
     at the 2 KiB tile."""
-    _check_encode_crc(tables, chunks, tile)
-    if chunks.device.type == "cpu":
-        return gf_encode_with_crc_plain(tables, chunks, tile)
-    parity, ls, launched = _encode_crc_launch(tables, chunks, tile)
-    if launched:
-        gf_encode_with_crc.launches += 1
-    return parity, ls
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("gf_encode_with_crc", chunks)
+    try:
+        _check_encode_crc(tables, chunks, tile)
+        if chunks.device.type == "cpu":
+            return gf_encode_with_crc_plain(tables, chunks, tile)
+        parity, ls, launched = _encode_crc_launch(tables, chunks, tile, st)
+        if launched:
+            gf_encode_with_crc.launches += 1
+        return parity, ls
+    finally:
+        if st:
+            st.exit()
 
 
 gf_encode_with_crc.launches = 0
@@ -739,39 +877,50 @@ def fused_hier_acc_call(tables: torch.Tensor, chunks: torch.Tensor,
     4*wb-byte blocks; `run_ends` (nruns,) int64 on the chunks' device
     holds the cumulative block ends (_acc_launch_args builds and checks
     it: non-decreasing, the last == N / (4*wb))."""
-    block = 4 * wb
-    _check_encode_crc(tables, chunks, block)
-    _check("run_ends", run_ends, chunks.device, torch.int64, 1)
-    if run_ends.numel() == 0:
-        raise ValueError("fused_hier_acc_call needs at least one run")
-    if chunks.device.type == "cpu":
-        bounds = _run_bounds(run_ends)
-        if any(b < a for a, b in bounds) or \
-                bounds[-1][1] != chunks.shape[1] // block:
-            raise ValueError("run_ends must be non-decreasing and end at "
-                             "the launch's block count")
-        return fused_hier_acc_call_plain(tables, chunks, run_ends, wb)
-    m, k, n = _check_operands(tables, chunks)
-    dev = chunks.device
-    k3_smem(m, k, block)
-    nruns = run_ends.numel()
-    parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
-    # the kernel XORs into the L slots: zero them first, in stream order
-    lacc = torch.zeros((nruns, k + m), dtype=torch.int64, device=dev)
-    if n == 0:
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("fused_hier_acc_call", chunks)
+    try:
+        block = 4 * wb
+        _check_encode_crc(tables, chunks, block)
+        _check("run_ends", run_ends, chunks.device, torch.int64, 1)
+        if run_ends.numel() == 0:
+            raise ValueError("fused_hier_acc_call needs at least one run")
+        if chunks.device.type == "cpu":
+            bounds = _run_bounds(run_ends)
+            if any(b < a for a, b in bounds) or \
+                    bounds[-1][1] != chunks.shape[1] // block:
+                raise ValueError("run_ends must be non-decreasing and end "
+                                 "at the launch's block count")
+            return fused_hier_acc_call_plain(tables, chunks, run_ends, wb)
+        m, k, n = _check_operands(tables, chunks)
+        dev = chunks.device
+        k3_smem(m, k, block)
+        nruns = run_ends.numel()
+        parity = torch.empty((m, n), dtype=torch.uint8, device=dev)
+        # the kernel XORs into the L slots: zero them first, in stream order
+        lacc = torch.zeros((nruns, k + m), dtype=torch.int64, device=dev)
+        if n == 0:
+            return parity, lacc
+        if st:
+            st.launch()
+        from . import _build
+        lib = _build.load()
+        ops = _k3_ops_tensor(block, dev)
+        rc = lib.ctt_gf_encode_crc_acc(tables.data_ptr(), chunks.data_ptr(),
+                                       parity.data_ptr(), lacc.data_ptr(),
+                                       ops.data_ptr(), run_ends.data_ptr(),
+                                       nruns, m, k, n, block, K3_DIGITS,
+                                       _stream_handle(dev))
+        if rc != 0:
+            raise RuntimeError(f"gf_encode_crc_acc launch failed: CUDA error "
+                               f"{rc}")
+        if st:
+            st.launched()
+        fused_hier_acc_call.launches += 1
         return parity, lacc
-    from . import _build
-    lib = _build.load()
-    ops = _k3_ops_tensor(block, dev)
-    rc = lib.ctt_gf_encode_crc_acc(tables.data_ptr(), chunks.data_ptr(),
-                                   parity.data_ptr(), lacc.data_ptr(),
-                                   ops.data_ptr(), run_ends.data_ptr(),
-                                   nruns, m, k, n, block, K3_DIGITS,
-                                   _stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"gf_encode_crc_acc launch failed: CUDA error {rc}")
-    fused_hier_acc_call.launches += 1
-    return parity, lacc
+    finally:
+        if st:
+            st.exit()
 
 
 fused_hier_acc_call.launches = 0
@@ -946,25 +1095,36 @@ def crc32c_rows_l(data: torch.Tensor, row_ends: torch.Tensor,
     cumulative block ends (non-decreasing, the last == N / block).  The
     plain version checks the ends; on the card they are built and
     checked on the host by _rows_launch_args, as K3's are."""
-    nrows, nblocks = _check_rows(data, row_ends, block)
-    if data.device.type == "cpu":
-        return crc32c_rows_l_plain(data, row_ends, block)
-    dev = data.device
-    k5_smem(block)
-    # the kernel XORs into the L slots: zero them first, in stream order
-    lout = torch.zeros(nrows, dtype=torch.int64, device=dev)
-    if nblocks == 0:
+    st = _profiler._is_profiler_enabled and \
+        launch_stage_enter("crc32c_rows_l", data)
+    try:
+        nrows, nblocks = _check_rows(data, row_ends, block)
+        if data.device.type == "cpu":
+            return crc32c_rows_l_plain(data, row_ends, block)
+        dev = data.device
+        k5_smem(block)
+        # the kernel XORs into the L slots: zero them first, in stream order
+        lout = torch.zeros(nrows, dtype=torch.int64, device=dev)
+        if nblocks == 0:
+            return lout
+        if st:
+            st.launch()
+        from . import _build
+        lib = _build.load()
+        ops = _k3_ops_tensor(block, dev)
+        rc = lib.ctt_crc32c_rows(data.data_ptr(), lout.data_ptr(),
+                                 ops.data_ptr(), row_ends.data_ptr(), nrows,
+                                 nblocks, block, K3_DIGITS,
+                                 _stream_handle(dev))
+        if rc != 0:
+            raise RuntimeError(f"crc32c_rows launch failed: CUDA error {rc}")
+        if st:
+            st.launched()
+        crc32c_rows_l.launches += 1
         return lout
-    from . import _build
-    lib = _build.load()
-    ops = _k3_ops_tensor(block, dev)
-    rc = lib.ctt_crc32c_rows(data.data_ptr(), lout.data_ptr(),
-                             ops.data_ptr(), row_ends.data_ptr(), nrows,
-                             nblocks, block, K3_DIGITS, _stream_handle(dev))
-    if rc != 0:
-        raise RuntimeError(f"crc32c_rows launch failed: CUDA error {rc}")
-    crc32c_rows_l.launches += 1
-    return lout
+    finally:
+        if st:
+            st.exit()
 
 
 crc32c_rows_l.launches = 0
@@ -990,13 +1150,35 @@ KERNEL_WRAPPERS = (gf_bitmatmul, fused_hier_call, gf_encode_with_crc_w32,
                    gf_bitmatmul_stream, crc32c_rows_l)
 
 
+# wrapper -> [calls, prep_ns, launch_ns] of the armed launches
+_stage_totals: dict[str, list[int]] = {
+    f.__name__: [0, 0, 0] for f in KERNEL_WRAPPERS}
+
+
 def launch_counts() -> dict[str, int]:
+    """Launches on the card by kernel wrapper since the last reset, every
+    one, whether a profiler recorded or not."""
     return {f.__name__: f.launches for f in KERNEL_WRAPPERS}
 
 
+def launch_stages() -> dict[str, dict[str, int]]:
+    """The two stages of the launches made while a torch.profiler
+    session recorded in the process, by kernel wrapper since the last
+    reset: `calls`, and nanoseconds of `prep_ns` and `launch_ns`
+    (LaunchStage).  Outside such a session an entry reads one flag and
+    adds nothing here."""
+    with _stage_lock:
+        return {name: {"calls": c, "prep_ns": p, "launch_ns": n}
+                for name, (c, p, n) in _stage_totals.items()}
+
+
 def reset_launch_counts() -> None:
+    """Zero launch_counts() and launch_stages()."""
     for f in KERNEL_WRAPPERS:
         f.launches = 0
+    with _stage_lock:
+        for tot in _stage_totals.values():
+            tot[:] = [0, 0, 0]
 
 
 # ----------------------------------------------------------------------------

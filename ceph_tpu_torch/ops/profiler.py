@@ -36,6 +36,15 @@ jax and its device), `set_ring_size` the startup ring resize.
 
 Always on, null when off: disabled, `begin()` returns None after one
 attribute check and every other entry point no-ops on a None record.
+
+The rest of the port's launch tracing lives beside the kernel wrappers
+in ops/bitsliced.py: `launch_counts()` counts every launch by wrapper,
+and `launch_stages()` splits the host time of the launches made while
+a torch.profiler session records into `prep` (the entry's first line
+to just before the C call) and `launch` (the C call up to its return
+code), each also a span, `ec.prep` and `ec.launch`, on the trace's
+clock.  Outside a profiler session an entry reads one flag for them.
+The OSD's `launch profile` reports both beside this recorder's ledger.
 """
 
 from __future__ import annotations

@@ -4055,14 +4055,19 @@ class OSDDaemon:
         recorder's launch ledger — aggregates, lat_launch_* percentile
         summaries, and the bounded ring of recent launches (each with
         launch id, jit bucket, runs/bytes/pg-mix, queue-wait, submit
-        and device times, and the contributing ops' trace ids) — and
+        and device times, and the contributing ops' trace ids) —,
         `kernel_launches`, this process's count of launches by kernel
-        wrapper (ops/bitsliced.launch_counts)."""
+        wrapper (ops/bitsliced.launch_counts), and `kernel_stages`,
+        their host time split into `prep_ns` and `launch_ns` with the
+        `calls` they cover (ops/bitsliced.launch_stages).  The stages
+        move only while a torch.profiler session records in the
+        daemon's process."""
         from ..ops import bitsliced
         out = self._profiler.profile(
             last=int(cmd["last"]) if "last" in cmd else None)
         out["osd"] = self.osd_id
         out["kernel_launches"] = bitsliced.launch_counts()
+        out["kernel_stages"] = bitsliced.launch_stages()
         out["host_perf_owner"] = self._profiler_reporter
         return out
 

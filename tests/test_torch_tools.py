@@ -319,6 +319,9 @@ def test_ceph_cli_daemon_folds_multiword_prefixes(tmp_path, capsys):
         assert tcli.main(["daemon", asok, "launch", "profile"]) == 0
         prof = json.loads(capsys.readouterr().out)
         assert "kernel_launches" in prof
+        assert set(prof["kernel_stages"]) == set(prof["kernel_launches"])
+        assert all(set(st) == {"calls", "prep_ns", "launch_ns"}
+                   for st in prof["kernel_stages"].values())
         assert tcli.main(["daemon", asok, "launch", "queue",
                           "status"]) == 0
         assert "enabled" in json.loads(capsys.readouterr().out)
