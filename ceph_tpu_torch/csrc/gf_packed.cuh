@@ -7,6 +7,12 @@
 // its input word] into accumulator b over the source rows, so
 // accumulator b holds the four rows' products of column b; one 4x4
 // byte transpose (transpose4) a word then gives the rows' output words.
+//
+// Which source rows a group reads and where its rows land is a policy
+// of the apply: DenseRows, the k rows in order and four consecutive
+// output rows (K1, and K4 on a dense matrix), or ListedRows, K4's
+// support layout (a group's listed source rows and its mapped output
+// rows).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,16 +101,75 @@ __device__ inline void build_packed(uint32_t* s_p, const uint8_t* tables,
   }
 }
 
-// The rows i0 .. i0+nrows-1 (one group, nrows <= 4) of the W words at
-// `col`, by lookups in the group's packed table P (k*256 words) over the
-// k source rows at `in`.  The loads of kJ source rows are issued before
-// their lookups.  kAcc: XOR the result into what `out` holds (a later
+// P of one group under K4's support layout: its output rows `rows` (-1
+// none) and the kp listed source rows at `src` (device memory), kp*256
+// words into s_p, by build_packed's work items.
+__device__ inline void build_packed_listed(uint32_t* s_p,
+                                           const uint8_t* tables, int k,
+                                           const int (&rows)[4],
+                                           const int* src, int kp) {
+  const int items = kp * 64;
+  for (int it0 = threadIdx.x; it0 < items; it0 += 2 * blockDim.x) {
+    uint32_t u[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int it = it0 + h * blockDim.x;
+      const int j = it < items ? __ldg(src + (it >> 6)) : 0;
+      const uint32_t* col =
+          reinterpret_cast<const uint32_t*>(tables) + j * 64 + (it & 63);
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        u[h][t] = it < items && rows[t] >= 0
+                      ? __ldg(col + static_cast<int64_t>(rows[t]) * k * 64)
+                      : 0u;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int it = it0 + h * blockDim.x;
+      if (it < items) {
+        transpose4(u[h]);
+        reinterpret_cast<uint4*>(s_p)[it] =
+            make_uint4(u[h][0], u[h][1], u[h][2], u[h][3]);
+      }
+    }
+  }
+}
+
+// The source rows of a group and its output rows: source row j of the
+// contraction is `in + j*n`, output row t is i0 + t while t < nrows.
+struct DenseRows {
+  const uint8_t* in;
+  uint8_t* out;
+  int64_t n;
+  int i0, nrows;
+  __device__ const uint8_t* src(int j) const { return in + j * n; }
+  __device__ bool has(int t) const { return t < nrows; }
+  __device__ uint8_t* dst(int t) const { return out + (i0 + t) * n; }
+};
+
+// K4's support layout: source row j of the pass is idx[j] (its list in
+// device memory), output row t is rows[t], none where it is -1.
+struct ListedRows {
+  const uint8_t* in;
+  uint8_t* out;
+  int64_t n;
+  const int* idx;
+  int rows[4];
+  __device__ const uint8_t* src(int j) const {
+    return in + __ldg(idx + j) * n;
+  }
+  __device__ bool has(int t) const { return rows[t] >= 0; }
+  __device__ uint8_t* dst(int t) const { return out + rows[t] * n; }
+};
+
+// The output rows of one group (`io.has`) at the W words of `col`, by
+// lookups in the group's packed table P (k*256 words) over its k source
+// rows (`io.src`).  The loads of kJ source rows are issued before their
+// lookups.  kAcc: XOR the result into what the output holds (a later
 // pass of a contraction split into passes); otherwise store it.
-template <int W, bool kVec, bool kAcc = false>
-__device__ inline void apply_group(const uint32_t* P, const uint8_t* in,
-                                   uint8_t* out, int k, int64_t n,
-                                   int64_t col, int64_t rem, int i0,
-                                   int nrows) {
+template <int W, bool kVec, bool kAcc, class Rows>
+__device__ inline void apply_rows(const uint32_t* P, const Rows& io, int k,
+                                  int64_t col, int64_t rem) {
   constexpr int kJ = W == 1 ? 8 : 4;
   uint32_t acc[W][4];
 #pragma unroll
@@ -116,7 +181,7 @@ __device__ inline void apply_group(const uint32_t* P, const uint8_t* in,
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj)
       if (j0 + jj < k)
-        load_words<W, kVec>(in + (j0 + jj) * n + col, rem, x[jj]);
+        load_words<W, kVec>(io.src(j0 + jj) + col, rem, x[jj]);
 #pragma unroll
     for (int jj = 0; jj < kJ; ++jj) {
       if (j0 + jj < k) {
@@ -133,8 +198,8 @@ __device__ inline void apply_group(const uint32_t* P, const uint8_t* in,
   for (int w = 0; w < W; ++w) transpose4(acc[w]);
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    if (t < nrows) {
-      uint8_t* dst = out + (i0 + t) * n + col;
+    if (io.has(t)) {
+      uint8_t* dst = io.dst(t) + col;
       uint32_t row[W];
 #pragma unroll
       for (int w = 0; w < W; ++w) row[w] = acc[w][t];
@@ -147,6 +212,17 @@ __device__ inline void apply_group(const uint32_t* P, const uint8_t* in,
       store_words<W, kVec>(dst, rem, row);
     }
   }
+}
+
+// The rows i0 .. i0+nrows-1 (one group, nrows <= 4) of the W words at
+// `col` over the k source rows at `in`: apply_rows on DenseRows.
+template <int W, bool kVec, bool kAcc = false>
+__device__ inline void apply_group(const uint32_t* P, const uint8_t* in,
+                                   uint8_t* out, int k, int64_t n,
+                                   int64_t col, int64_t rem, int i0,
+                                   int nrows) {
+  apply_rows<W, kVec, kAcc>(P, DenseRows{in, out, n, i0, nrows}, k, col,
+                            rem);
 }
 
 }  // namespace ctt

@@ -43,7 +43,17 @@ Four hand-written CUDA kernels (csrc/) carry the EC data plane:
   `gf_bitmatmul_pallas_w32(stream=True)`).  It serves the matrices K1
   refuses, the CLAY repair matrices of parallel/mesh.ClayRepairPlan
   (64 x 176, 81 x 270), and the tools/w32_sweep path; `k4_plan` is its
-  launch's pure mirror.
+  launch's pure mirror.  K4 is bound by its shared-memory lookups, one
+  per input byte of each source row a group of four output rows looks
+  up, with the input bytes as the floor below them.  A CLAY repair
+  matrix is sparse, so `tables_tensor` derives a support layout
+  (`k4_layout`: the output rows regrouped by fewest shared source rows,
+  each group's list of source rows with a nonzero coefficient) and K4's
+  listed launch looks up only those rows: 17 of 176 a group at k=8 m=4
+  d=11, 43.7 us for 32 objects from 395.4 (PERF.md).  Dense matrices,
+  tables K1 takes and tensors `tables_tensor` did not make take the
+  dense launch; `k4_support_counts()` says how many rows the launches
+  looked up.
 
 The coefficient operand of every kernel is the (r, k, 256) product
 table of the matrix (ec/gf.product_tables).  The kernels take bytes:
@@ -92,11 +102,22 @@ SMEM_LIMIT = 232448          # bytes of shared memory a block may use
 
 def tables_tensor(tables: np.ndarray, device: torch.device) -> torch.Tensor:
     """(r, k, 256) uint8 product tables (ec/gf.product_tables) as the
-    kernels' coefficient operand on `device`."""
+    kernels' coefficient operand on `device`.  Where K4 takes them (not
+    k1_tables_fit) and their matrix (tables[:, :, 1], since c * 1 = c)
+    has a support layout that skips source rows, the layout and its
+    packed form on `device` are kept on the tensor for K4's listed
+    launch (k4_layout_of)."""
     t = np.ascontiguousarray(tables, dtype=np.uint8)
     if t.ndim != 3 or t.shape[2] != 256:
         raise ValueError(f"product tables must be (r, k, 256), got {t.shape}")
-    return torch.from_numpy(t.copy()).to(device)
+    out = torch.from_numpy(t.copy()).to(device)
+    r, k = t.shape[:2]
+    if r and k and not k1_tables_fit(r, k):
+        layout = k4_layout(t[:, :, 1])
+        if layout.skips:
+            out._k4_layout = (out._version, layout, torch.from_numpy(
+                layout.packed()).to(device))
+    return out
 
 
 def _bitmatrix_from_tables(tables: torch.Tensor) -> torch.Tensor:
@@ -428,30 +449,44 @@ def _pass_rows(k: int, groups: int | None) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def k4_plan(r: int, k: int, n: int, sms: int, tile: int | None = None,
-            passes: int | None = None) -> K4Plan:
+            passes: int | None = None, support: int | None = None) -> K4Plan:
     """K4's launch for (r, k) tables over n bytes a row, the host's pure
-    mirror of the kernel's layout.  Passes of _pass_rows(k, passes)
-    source rows; a block owns as many groups as fit one pass's tables in
-    one block (all ceil(r/4) where they fit: K1's layout).  A thread
-    takes 16 bytes where the row is 16-byte aligned and the blocks along
-    the groups give K1_WIDE_ROW_BYTES_PER_SM bytes an SM (K1's rule,
-    counted over every group block), else 4.  With a `tile` (bytes of
-    each row per block) the columns take ceil(n / tile) blocks; without,
-    enough for every thread-width of the row, at most what leaves one
-    resident wave (sm count times the blocks an SM holds by registers
-    and shared memory) to the group blocks, the blocks striding over the
-    rest."""
+    mirror of the kernel's layout.  `support` is the longest list of the
+    support layout the launch passes (K4Layout.longest), which takes
+    the listed launch whatever its length; None is the dense launch.
+    Dense: passes of _pass_rows(k, passes) source rows; a block owns as
+    many groups as fit one pass's tables in one block (all ceil(r/4)
+    where they fit: K1's layout).  Listed: passes of
+    _pass_rows(support, passes) of each group's listed rows, one group a
+    block (the kernel's rule), so the shared memory a block leaves goes
+    to resident blocks (at most K1_BLOCKS_PER_SM by registers).  A
+    thread takes 16 bytes where the row is 16-byte aligned and the
+    blocks along the groups give K1_WIDE_ROW_BYTES_PER_SM bytes an SM
+    (K1's rule, counted over every group block), else 4.  With a `tile`
+    (bytes of each row per block) the columns take ceil(n / tile)
+    blocks; without, enough for every thread-width of the row, at most
+    what leaves one resident wave (sm count times the blocks an SM holds
+    by registers and shared memory) to the group blocks, the blocks
+    striding over the rest."""
     if r < 1 or k < 1 or n < 1:
         raise ValueError(f"k4_plan needs r, k, n >= 1, got {(r, k, n)}")
-    rows = _pass_rows(k, passes)
+    if support is not None and not 0 <= support <= k:
+        raise ValueError(f"a support layout lists 0 to k={k} rows a group, "
+                         f"got {support}")
     groups = -(-r // 4)
-    table = rows * K4_TABLE_BYTES_PER_ROW
-    gpb = min(groups, SMEM_LIMIT // table)
+    if support is None:
+        rows = _pass_rows(k, passes)
+        gpb = min(groups, SMEM_LIMIT // (rows * K4_TABLE_BYTES_PER_ROW))
+        listed = k
+    else:
+        listed = max(1, support)
+        rows = _pass_rows(listed, passes)
+        gpb = 1
     group_blocks = -(-groups // gpb)
     if group_blocks > K4_MAX_GROUP_BLOCKS:
         raise ValueError(f"{r} output rows need {group_blocks} group blocks "
                          f"(at most {K4_MAX_GROUP_BLOCKS})")
-    smem = gpb * table
+    smem = gpb * rows * K4_TABLE_BYTES_PER_ROW
     wide = n % 16 == 0 and n * group_blocks >= K1_WIDE_ROW_BYTES_PER_SM * sms
     tb = 16 if wide else 4
     if tile:
@@ -461,8 +496,98 @@ def k4_plan(r: int, k: int, n: int, sms: int, tile: int | None = None,
                      SM_SMEM // (smem + BLOCK_SMEM_RESERVED))
         need = -(-n // (tb * K4_THREADS))
         col_blocks = max(1, min(need, per_sm * sms // group_blocks))
-    return K4Plan(tb, gpb, rows, -(-k // rows), group_blocks, col_blocks,
-                  smem)
+    return K4Plan(tb, gpb, rows, -(-listed // rows), group_blocks,
+                  col_blocks, smem)
+
+
+class K4Layout(NamedTuple):
+    """K4's support layout of an (r, k) matrix: its output rows in groups
+    of four (`rows`, each group's rows, the last group shorter where 4
+    does not divide r) and, for each group, the source rows with a
+    nonzero coefficient in any of its rows, ascending (`lists`); the
+    longest list (`longest`, what sizes the listed launch: k4_plan
+    `support`) and the lists' rows summed (`listed`).  A zero
+    coefficient contributes 0 * x = 0, so a group that looks up only its
+    listed rows computes the same bytes."""
+    k: int
+    rows: tuple[tuple[int, ...], ...]
+    lists: tuple[tuple[int, ...], ...]
+    longest: int
+    listed: int
+
+    @property
+    def skips(self) -> bool:
+        """Whether any group leaves out a source row; a layout that skips
+        none is the dense launch."""
+        return self.listed < len(self.lists) * self.k
+
+    def packed(self) -> np.ndarray:
+        """The int32 form the kernel reads: each group's four output rows
+        (-1 past the group's last), the groups' offsets into the lists
+        (one more than the groups), the lists."""
+        rows = np.full((len(self.rows), 4), -1, dtype=np.int32)
+        for g, grp in enumerate(self.rows):
+            rows[g, :len(grp)] = grp
+        offsets = np.cumsum([0] + [len(x) for x in self.lists])
+        lists = np.fromiter(itertools.chain.from_iterable(self.lists),
+                            dtype=np.int32, count=int(offsets[-1]))
+        return np.concatenate([rows.reshape(-1),
+                               offsets.astype(np.int32), lists])
+
+
+def _union_rows(groups, support) -> int:
+    return sum(functools.reduce(int.__or__, (support[i] for i in g))
+               .bit_count() for g in groups)
+
+
+def k4_layout(coeff: np.ndarray) -> K4Layout:
+    """The support layout of an (r, k) GF(2^8) matrix, a pure function.
+    Groups of four output rows, by greedy min-union regrouping: the
+    lowest unplaced row opens a group, which then takes, three times,
+    the unplaced row that adds the fewest source rows to the group's
+    union (the lowest on a tie).  The regrouping is kept only where its
+    unions sum to fewer source rows than the row order's groups (4g ..
+    4g+3), so a dense matrix keeps the identity map and full lists."""
+    c = np.asarray(coeff)
+    if c.ndim != 2 or 0 in c.shape:
+        raise ValueError(f"coefficients must be (r, k) with r, k >= 1, got "
+                         f"{c.shape}")
+    r, k = c.shape
+    support = [int.from_bytes(np.packbits(row, bitorder="little").tobytes(),
+                              "little") for row in c != 0]
+    groups = [tuple(range(i, min(i + 4, r))) for i in range(0, r, 4)]
+    left = list(range(r))
+    greedy = []
+    while left:
+        grp = [left.pop(0)]
+        u = support[grp[0]]
+        while len(grp) < 4 and left:
+            best = min(left, key=lambda i: (u | support[i]).bit_count())
+            left.remove(best)
+            grp.append(best)
+            u |= support[best]
+        greedy.append(tuple(grp))
+    if _union_rows(greedy, support) < _union_rows(groups, support):
+        groups = greedy
+    lists = []
+    for g in groups:
+        u = functools.reduce(int.__or__, (support[i] for i in g))
+        lists.append(tuple(j for j in range(k) if u >> j & 1))
+    return K4Layout(k, tuple(groups), tuple(lists), max(map(len, lists)),
+                    sum(map(len, lists)))
+
+
+def k4_layout_of(tables: torch.Tensor
+                 ) -> tuple[K4Layout, torch.Tensor] | None:
+    """(K4Layout, its packed form on the tensor's device) that
+    tables_tensor kept on this very tensor, unless the tensor was
+    written since; None for any other tensor (a dense matrix, one K1
+    takes, a copy, a tensor made otherwise), which takes the dense
+    launch."""
+    kept = getattr(tables, "_k4_layout", None)
+    if kept is None or kept[0] != tables._version:
+        return None
+    return kept[1:]
 
 
 def gf_bitmatmul_stream_plain(tables: torch.Tensor, chunks: torch.Tensor,
@@ -492,7 +617,10 @@ def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
     of ceph_tpu's gf_bitmatmul_pallas_w32(stream=True); serves every r
     and k — the CLAY repair matrices K1 refuses — and every width,
     ragged too.  `tile` as for K1.  CUDA tensors launch
-    csrc/gf_bitmatmul_stream.cu with k4_plan's grid; CPU tensors run
+    csrc/gf_bitmatmul_stream.cu with k4_plan's grid: tables made by
+    tables_tensor whose support layout skips source rows take the listed
+    launch (each group looks up only its listed rows, its passes split
+    those), every other tensor the dense one.  CPU tensors run
     gf_bitmatmul_stream_plain."""
     st = _profiler._is_profiler_enabled and \
         launch_stage_enter("gf_bitmatmul_stream", chunks)
@@ -506,13 +634,18 @@ def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
         out = torch.empty((r, n), dtype=torch.uint8, device=dev)
         if n == 0 or r == 0:
             return out
-        plan = k4_plan(r, k, n, _sm_count(dev), tile_b or None, groups)
+        kept = k4_layout_of(tables)
+        dense = -(-r // 4) * k
+        layout, packed = kept or (None, None)
+        plan = k4_plan(r, k, n, _sm_count(dev), tile_b or None, groups,
+                       layout and layout.longest)
         if st:
             st.launch()
         from . import _build
         lib = _build.load()
         rc = lib.ctt_gf_bitmatmul_stream(
-            tables.data_ptr(), chunks.data_ptr(), out.data_ptr(), r, k, n,
+            tables.data_ptr(), chunks.data_ptr(), out.data_ptr(),
+            packed.data_ptr() if packed is not None else None, r, k, n,
             tile_b, plan.thread_bytes, plan.groups_per_block,
             plan.rows_per_pass, plan.col_blocks, _stream_handle(dev))
         if rc != 0:
@@ -521,6 +654,10 @@ def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
         if st:
             st.launched()
         gf_bitmatmul_stream.launches += 1
+        with _support_lock:
+            _support[0] += packed is not None
+            _support[1] += layout.listed if layout else dense
+            _support[2] += dense
         return out
     finally:
         if st:
@@ -528,6 +665,22 @@ def gf_bitmatmul_stream(tables: torch.Tensor, chunks: torch.Tensor,
 
 
 gf_bitmatmul_stream.launches = 0
+# K4 launches on the card since the last reset: [launches whose layout
+# skipped a source row, listed source rows summed over the groups, k
+# summed over the groups]
+_support = [0, 0, 0]
+_support_lock = threading.Lock()
+
+
+def k4_support_counts() -> dict[str, int]:
+    """K4's launches on the card since the last reset: `launches` whose
+    support layout skipped any source row, `rows_looked_up`, the source
+    rows their groups looked up (k a group on the dense launch), and
+    `rows_dense`, k a group.  Kept apart from launch_counts(), whose
+    values count launches."""
+    with _support_lock:
+        return dict(zip(("launches", "rows_looked_up", "rows_dense"),
+                        _support))
 
 
 # ----------------------------------------------------------------------------
@@ -1173,9 +1326,11 @@ def launch_stages() -> dict[str, dict[str, int]]:
 
 
 def reset_launch_counts() -> None:
-    """Zero launch_counts() and launch_stages()."""
+    """Zero launch_counts(), launch_stages() and k4_support_counts()."""
     for f in KERNEL_WRAPPERS:
         f.launches = 0
+    with _support_lock:
+        _support[:] = [0, 0, 0]
     with _stage_lock:
         for tot in _stage_totals.values():
             tot[:] = [0, 0, 0]

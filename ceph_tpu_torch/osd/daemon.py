@@ -4059,7 +4059,9 @@ class OSDDaemon:
         `kernel_launches`, this process's count of launches by kernel
         wrapper (ops/bitsliced.launch_counts), and `kernel_stages`,
         their host time split into `prep_ns` and `launch_ns` with the
-        `calls` they cover (ops/bitsliced.launch_stages).  The stages
+        `calls` they cover (ops/bitsliced.launch_stages), and
+        `k4_support`, the source rows K4's launches looked up against
+        the dense count (ops/bitsliced.k4_support_counts).  The stages
         move only while a torch.profiler session records in the
         daemon's process."""
         from ..ops import bitsliced
@@ -4067,6 +4069,7 @@ class OSDDaemon:
             last=int(cmd["last"]) if "last" in cmd else None)
         out["osd"] = self.osd_id
         out["kernel_launches"] = bitsliced.launch_counts()
+        out["k4_support"] = bitsliced.k4_support_counts()
         out["kernel_stages"] = bitsliced.launch_stages()
         out["host_perf_owner"] = self._profiler_reporter
         return out

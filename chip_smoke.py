@@ -35,7 +35,8 @@ CUDA kernels from ceph_tpu_torch/csrc/ (first use), then:
    ranges, with rows of one block and empty rows) and K4 (Pallas #7's
    counterpart: 8 x 512 KiB -> 3 at one pass, and the CLAY repair
    matrices of phase G, 64 x 176 over 32 objects' 8 KiB sub-chunks and
-   81 x 270 over 32 x 6473 B at two passes).  Then the K3 table: K3 on one 512 KiB run at B = 1,
+   81 x 270 over 32 x 6473 B, by the listed launch of their support
+   layouts).  Then the K3 table: K3 on one 512 KiB run at B = 1,
    2 and 4 KiB, with its L zero-fill and without, and K2's hier entry
    at the same block as the run's control; the zero-fill alone; the two
    K3 rows beside their times before K3's redesign.  Then the K2 table:
@@ -701,8 +702,13 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
         tab = bs.tables_tensor(gf.product_tables(mat), dev)
         rows_c = torch.from_numpy(
             rng.integers(0, 256, (j, n), dtype=np.uint8)).to(dev)
+        layout, _ = bs.k4_layout_of(tab)
         passes = bs.k4_plan(r, j, n, torch.cuda.get_device_properties(
-            dev).multi_processor_count).passes
+            dev).multi_processor_count, None, None, layout.longest).passes
+        # the listed launch reads a group's rows' tables of its listed
+        # source rows only
+        table_bytes = 256 * sum(len(g) * len(x)
+                                for g, x in zip(layout.rows, layout.lists))
         rows.append(kernel_row(
             f"gf_bitmatmul_stream (K4, CLAY {name}: {r} x {j} over "
             f"{N_CLAY_OBJECTS} x {n // N_CLAY_OBJECTS} B, {passes} "
@@ -711,7 +717,7 @@ def phase_kernels(dev, bs, gf, rng, codec) -> list[dict]:
             "gf_bitmatmul_stream", "clay_repair",
             lambda tab=tab, x=rows_c: bs.gf_bitmatmul_stream(tab, x),
             lambda tab=tab, x=rows_c: bs.gf_bitmatmul_stream_plain(tab, x),
-            [(r, n)], j * n + r * n + r * j * 256, 2 * r * j * n, flush))
+            [(r, n)], j * n + r * n + table_bytes, 2 * r * j * n, flush))
     del flush
     return rows
 

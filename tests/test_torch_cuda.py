@@ -211,6 +211,137 @@ def test_clay_repair_plan_on_card_matches_host(cuda_device):
             outs[0].reshape(-1), codec.repair(lost, helpers[0], s))
 
 
+def _clay_tables(profile, cuda_device):
+    """(matrix, its tables by tables_tensor) of every lost chunk of a
+    CLAY profile: the tables the listed launch knows."""
+    from ceph_tpu_torch.ec import ErasureCodePluginRegistry
+    from ceph_tpu_torch.parallel import ClayRepairPlan
+    k, m, d = profile
+    codec = ErasureCodePluginRegistry.instance().factory(
+        "clay", {"k": str(k), "m": str(m), "d": str(d)})
+    plans = [ClayRepairPlan.build(codec, lost, device=cuda_device)
+             for lost in range(k + m)]
+    return [(p.matrix, p.tables_tensor()) for p in plans]
+
+
+@pytest.mark.parametrize("profile,n", [((8, 4, 11), 2 * 8192),
+                                       ((8, 4, 11), 8192 + 5),
+                                       ((8, 3, 10), 2 * 6473),
+                                       ((8, 3, 10), 1001)])
+def test_k4_listed_matches_plain_on_every_clay_plan(cuda_device, profile, n):
+    """The listed launch on every repair plan of k8m4d11 (12) and k8m3d10
+    (11), 16-byte and ragged widths, against K4's plain version; each
+    launch skips source rows."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(n)
+    for mat, tab in _clay_tables(profile, cuda_device):
+        lay, packed = bs.k4_layout_of(tab)
+        assert lay.skips and packed is not None
+        x = torch.from_numpy(rng.integers(0, 256, (mat.shape[1], n),
+                                          dtype=np.uint8)).to(cuda_device)
+        bs.reset_launch_counts()
+        got = bs.gf_bitmatmul_stream(tab, x)
+        torch.cuda.synchronize()
+        assert bs.k4_support_counts() == {
+            "launches": 1, "rows_looked_up": lay.listed,
+            "rows_dense": len(lay.lists) * mat.shape[1]}
+        np.testing.assert_array_equal(
+            got.cpu().numpy(),
+            bs.gf_bitmatmul_stream_plain(tab, x).cpu().numpy())
+
+
+@pytest.mark.parametrize("zeros", [0.0, 0.5, 0.92])
+@pytest.mark.parametrize("r,k,n,tile,groups", [
+    (64, 176, 32 * 8192, None, None), (81, 270, 6473, None, None),
+    (13, 300, 1001, None, 3), (9, 40, 333, 64, None),
+    (3, 8, 1 << 19, None, None), (22, 250, 4096 + 16, None, 2)])
+def test_k4_listed_matches_plain_on_random_sparse_matrices(
+        cuda_device, zeros, r, k, n, tile, groups):
+    """Random matrices at 0%, 50% and 92% zeros (and one zero row):
+    K4 from tables_tensor against its plain version; a 0% matrix takes
+    the dense launch."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(int(zeros * 100) + r + k + n)
+    mat = rng.integers(1, 256, (r, k), dtype=np.uint8)
+    mat[rng.random((r, k)) < zeros] = 0
+    if zeros:
+        mat[r // 2] = 0
+    tab = _tables(mat, cuda_device)
+    x = torch.from_numpy(rng.integers(0, 256, (k, n),
+                                      dtype=np.uint8)).to(cuda_device)
+    bs.reset_launch_counts()
+    got = bs.gf_bitmatmul_stream(tab, x, tile=tile, groups=groups)
+    torch.cuda.synchronize()
+    assert bs.k4_support_counts()["launches"] == int(
+        zeros > 0 and not bs.k1_tables_fit(r, k))
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        bs.gf_bitmatmul_stream_plain(tab, x, groups).cpu().numpy())
+
+
+@pytest.mark.parametrize("n", [1001, 2 * 8192, 8192 + 5])
+def test_k4_listed_with_a_group_of_every_source_row(cuda_device, n):
+    """12 x 100 tables (K4's, not K1's) whose first group lists all 100
+    source rows and whose others skip: the listed launch, one group a
+    block, against the plain version."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    rng = np.random.default_rng(n)
+    mat = rng.integers(1, 256, (12, 100), dtype=np.uint8)
+    mat[4:][rng.random((8, 100)) < 0.5] = 0
+    tab = _tables(mat, cuda_device)
+    lay, _ = bs.k4_layout_of(tab)
+    assert lay.longest == 100 and lay.skips
+    x = torch.from_numpy(rng.integers(0, 256, (100, n),
+                                      dtype=np.uint8)).to(cuda_device)
+    bs.reset_launch_counts()
+    got = bs.gf_bitmatmul_stream(tab, x)
+    torch.cuda.synchronize()
+    assert bs.k4_support_counts() == {
+        "launches": 1, "rows_looked_up": lay.listed, "rows_dense": 300}
+    np.testing.assert_array_equal(
+        got.cpu().numpy(),
+        bs.gf_bitmatmul_stream_plain(tab, x).cpu().numpy())
+
+
+def test_k4_unknown_tables_take_the_dense_launch(cuda_device):
+    """A tables tensor made without tables_tensor (here: straight from
+    the product tables, and a clone) takes the dense launch, rows looked
+    up = rows dense, and computes the same bytes as the listed one."""
+    from ceph_tpu_torch.ec import gf
+    from ceph_tpu_torch.ops import bitsliced as bs
+    mat, tab = _clay_tables((8, 4, 11), cuda_device)[0]
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 256, (176, 4 * 8192),
+                                      dtype=np.uint8)).to(cuda_device)
+    listed = bs.gf_bitmatmul_stream(tab, x)
+    for other in (torch.from_numpy(gf.product_tables(mat)).to(cuda_device),
+                  tab.clone()):
+        assert bs.k4_layout_of(other) is None
+        bs.reset_launch_counts()
+        got = bs.gf_bitmatmul_stream(other, x)
+        torch.cuda.synchronize()
+        assert bs.k4_support_counts() == {"launches": 0,
+                                          "rows_looked_up": 16 * 176,
+                                          "rows_dense": 16 * 176}
+        assert torch.equal(got, listed)
+
+
+def test_k4_support_counts_at_the_cell_shape(cuda_device):
+    """The cell's call: 64 objects of 8 KiB sub-chunks, every lost chunk
+    of k8m4d11; the groups look up 17 of 176 source rows."""
+    from ceph_tpu_torch.ops import bitsliced as bs
+    x = torch.zeros((176, 64 * 8192), dtype=torch.uint8, device=cuda_device)
+    tables = _clay_tables((8, 4, 11), cuda_device)
+    bs.reset_launch_counts()
+    for _, tab in tables:
+        bs.gf_bitmatmul_stream(tab, x)
+    torch.cuda.synchronize()
+    got = bs.k4_support_counts()
+    assert got["launches"] == 12
+    assert got["rows_looked_up"] * 176 == got["rows_dense"] * 17
+    assert bs.launch_counts()["gf_bitmatmul_stream"] == 12
+
+
 def test_k2_byte_entry_matches_plain(cuda_device):
     """K2's byte entry (Pallas #6's contract) against its plain version,
     which takes the byte crc matrix, and against the w32 entry."""

@@ -322,6 +322,8 @@ def test_ceph_cli_daemon_folds_multiword_prefixes(tmp_path, capsys):
         assert set(prof["kernel_stages"]) == set(prof["kernel_launches"])
         assert all(set(st) == {"calls", "prep_ns", "launch_ns"}
                    for st in prof["kernel_stages"].values())
+        assert set(prof["k4_support"]) == {"launches", "rows_looked_up",
+                                           "rows_dense"}
         assert tcli.main(["daemon", asok, "launch", "queue",
                           "status"]) == 0
         assert "enabled" in json.loads(capsys.readouterr().out)
