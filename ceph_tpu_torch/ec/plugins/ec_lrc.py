@@ -5,6 +5,14 @@ own ec/ modules and registry; encode and decode run on the host, as in
 the JAX package).  The layers of the layered grammar default to the
 port's `jerasure` plugin, on the native library.
 
+A layered profile that names a `device` (as the torch plugin's key
+does) takes the device path, ErasureCodeLrcLayeredDevice: the layers
+composed into one generator for encode and the fused write path, and a
+repair plan a (helpers, targets) signature applied in one K1 launch
+(`local_repair_counts()` counts the plans and the rows they read and
+wrote).  Without a device the host path
+is the JAX package's.
+
 Fills the role of reference src/erasure-code/lrc/ErasureCodeLrc.{h,cc}:
 cheap single-failure repair by adding local parities over groups.
 
@@ -31,9 +39,15 @@ from __future__ import annotations
 
 import errno
 import json
+import threading
 
 import numpy as np
+import torch
+from torch._C._profiler import _RecordFunctionFast as _span
+from torch.autograd import profiler as _profiler
 
+from ... import resolve_device
+from ...ops import bitsliced as bs
 from .. import gf
 from ..base import ErasureCode
 from ..interface import ErasureCodeError, Profile
@@ -287,6 +301,16 @@ class ErasureCodeLrcLayered(ErasureCode):
         return full[self.k:]
 
     def decode_chunks(self, dense: np.ndarray, erasures) -> np.ndarray:
+        out, self._unsolved = self._decode_layers(dense, erasures)
+        return out
+
+    def _decode_layers(self, dense: np.ndarray, erasures
+                       ) -> tuple[np.ndarray, set[int]]:
+        """The layers' decodes in turn, each where its own code can
+        rebuild what it lost, until no layer makes progress: (the rows
+        with what was rebuilt, the erased rows left unsolved).  Every
+        step is a GF(2^8) matrix apply over the byte axis, so the rows
+        may be coefficient vectors (the device path's plans)."""
         out = dense.copy()
         erased = set(erasures)
         progress = True
@@ -309,8 +333,7 @@ class ErasureCodeLrcLayered(ErasureCode):
                     out[r] = rebuilt[i]
                 erased -= set(gone)
                 progress = True
-        self._unsolved = set(erased)
-        return out
+        return out, erased
 
     def minimum_to_decode(self, want_to_read, available):
         want, avail = set(want_to_read), set(available)
@@ -350,10 +373,193 @@ class ErasureCodeLrcLayered(ErasureCode):
         return out
 
 
+# the layered device path's plan applies since the last reset
+_local = dict.fromkeys(("helper_rows", "rebuilt_rows", "plans_built",
+                        "plan_hits"), 0)
+_local_lock = threading.Lock()
+
+
+def local_repair_counts() -> dict[str, int]:
+    """The layered LRC device path's repairs since the last reset:
+    `helper_rows` and `rebuilt_rows`, the rows its plan applies read
+    and wrote (each apply is one K1 or K4 launch, counted by
+    ops/bitsliced.launch_counts); `plans_built` and `plan_hits`, the
+    (helpers, targets) plans composed and found cached.  helper_rows /
+    rebuilt_rows is 3 for a single-chunk repair of k=4 m=2 l=3 from
+    its local group."""
+    with _local_lock:
+        return dict(_local)
+
+
+def reset_local_repair_counts() -> None:
+    with _local_lock:
+        _local.update(dict.fromkeys(_local, 0))
+
+
+class ErasureCodeLrcLayeredDevice(ErasureCodeLrcLayered):
+    """The layered grammar on the codec's device (profile key `device`,
+    as the torch plugin's: "cuda", "cuda:N" or "cpu" for the plain
+    versions).
+
+    Every layer is a GF(2^8) matrix code, so the host encode run on the
+    identity is the code's (n, k) systematic generator in logical order
+    (`generator`), and the host layered decode run on the identity rows
+    of a helper set is the (targets x helpers) matrix that rebuilds
+    what that decode would rebuild: one matrix a repair, a local group's
+    XOR row where one layer serves.  Encode, the write path's fused
+    parity and crc32c and their submit halves are an ErasureCodeTorch
+    holding the generator (K3 fused, K1 plain); a repair plan is built
+    on the host once a (helpers, targets) signature and applied in one
+    K1 launch, K4 where its tables exceed K1's shared memory.  A layer
+    without a generator matrix (a minimal-density technique) is refused
+    at init: nothing runs on the host in its place."""
+
+    def init(self, profile: Profile) -> None:
+        from .ec_torch import ErasureCodeTorch
+        super().init(profile)
+        for layer in self.layers:
+            if getattr(layer.codec, "matrix", None) is None:
+                raise ErasureCodeError(
+                    errno.EINVAL,
+                    f"layer {layer.spec!r} has no generator matrix: the "
+                    f"device path applies the layers as one matrix")
+        self.device = resolve_device(profile.get("device"))
+        eye = np.eye(self.k, dtype=np.uint8)
+        self.generator = np.concatenate(
+            [eye, ErasureCodeLrcLayered.encode_chunks(self, eye)])
+        self._torch = ErasureCodeTorch("reed_sol_van")
+        self._torch.init(Profile({"k": str(self.k), "m": str(self.m),
+                                  "device": str(self.device)}))
+        self._torch.set_matrix(self.generator)
+        self._plans: dict[tuple, tuple] = {}
+        self._lock = threading.Lock()
+
+    def codec_signature(self) -> tuple:
+        """Coalescing key: the grammar and the generator it composes
+        to, so no other plugin's launch serves this code's decodes."""
+        return ("lrc", self.profile.get("mapping"),
+                self.profile.get("layers")) + \
+            self._torch.codec_signature()[1:]
+
+    # -- encode: the torch plugin's machinery on the generator -------------
+
+    def encode_chunks(self, chunks: np.ndarray) -> np.ndarray:
+        return self._torch.encode_chunks(chunks)
+
+    def encode_extents_with_crc_submit(self, runs):
+        return self._torch.encode_extents_with_crc_submit(runs)
+
+    def encode_extents_with_crc_finalize(self, handle):
+        return self._torch.encode_extents_with_crc_finalize(handle)
+
+    def encode_chunks_submit(self, chunks):
+        return self._torch.encode_chunks_submit(chunks)
+
+    def encode_chunks_finalize(self, handle):
+        return self._torch.encode_chunks_finalize(handle)
+
+    def fold_extent_crcs(self, l, tail_bytes, seeds, body_bytes):
+        return self._torch.fold_extent_crcs(l, tail_bytes, seeds,
+                                            body_bytes)
+
+    # -- repair plans ------------------------------------------------------
+
+    def _plan(self, helpers: tuple[int, ...], targets: tuple[int, ...]):
+        """(the targets the layers rebuild from `helpers`, in target
+        order; their product tables over the helpers on the device;
+        whether the plan was cached), cached by signature.  A hit is
+        counted where the plan is applied."""
+        key = (helpers, targets)
+        with self._lock:
+            hit = self._plans.get(key)
+        if hit is not None:
+            return hit + (True,)
+        if _profiler._is_profiler_enabled:
+            with _span("ec.lrc.plan", [], {"helpers": len(helpers),
+                                           "targets": len(targets)}):
+                plan = self._compose(helpers, targets)
+        else:
+            plan = self._compose(helpers, targets)
+        with self._lock:
+            self._plans[key] = plan
+        with _local_lock:
+            _local["plans_built"] += 1
+        return plan + (False,)
+
+    def _compose(self, helpers, targets):
+        n = self.get_chunk_count()
+        if len(set(helpers)) != len(helpers) or set(helpers) & \
+                set(targets) or not set(helpers) | set(targets) <= \
+                set(range(n)):
+            raise ErasureCodeError(
+                errno.EINVAL, f"no repair of {targets} from {helpers}")
+        unit = np.zeros((n, len(helpers)), dtype=np.uint8)
+        unit[list(helpers), range(len(helpers))] = 1
+        coeff, unsolved = self._decode_layers(
+            unit, [c for c in range(n) if c not in helpers])
+        solved = tuple(t for t in targets if t not in unsolved)
+        tables = bs.tables_tensor(gf.product_tables(coeff[list(solved)]),
+                                  self.device) if solved else None
+        return solved, tables
+
+    def _apply(self, tables: torch.Tensor, rows: torch.Tensor,
+               hit: bool) -> torch.Tensor:
+        r, k, _ = tables.shape
+        out = bs.gf_bitmatmul(tables, rows) if bs.k1_tables_fit(r, k) \
+            else bs.gf_bitmatmul_stream(tables, rows)
+        with _local_lock:
+            _local["plan_hits"] += hit
+            _local["helper_rows"] += k
+            _local["rebuilt_rows"] += r
+        return out
+
+    def decode_chunks_device(self, chunks: torch.Tensor, helpers,
+                             targets) -> torch.Tensor:
+        """Device-resident repair: `chunks` (len(helpers), N) helper
+        rows in `helpers` order on the codec's device -> the `targets`
+        rows (len(targets), N), one launch.  Raises where the layers
+        cannot rebuild a target from those helpers."""
+        st = _profiler._is_profiler_enabled and bs.launch_stage_enter(
+            "gf_bitmatmul" if bs.k1_tables_fit(len(targets), len(helpers))
+            else "gf_bitmatmul_stream", self.device)
+        try:
+            helpers, targets = tuple(helpers), tuple(targets)
+            solved, tables, hit = self._plan(helpers, targets)
+            if solved != targets:
+                raise ErasureCodeError(
+                    errno.EIO, f"LRC: chunks "
+                    f"{sorted(set(targets) - set(solved))} unrecoverable "
+                    f"from {list(helpers)}")
+            return self._apply(tables, chunks, hit)
+        finally:
+            if st:
+                st.exit()
+
+    def decode_chunks(self, dense: np.ndarray, erasures) -> np.ndarray:
+        n = self.get_chunk_count()
+        erased = tuple(sorted(set(erasures)))
+        helpers = tuple(c for c in range(n) if c not in erased)
+        solved, tables, hit = self._plan(helpers, erased)
+        out = dense.copy()
+        if solved:
+            _staged, rows = bs.stage(
+                np.ascontiguousarray(dense[list(helpers)], np.uint8),
+                self.device)
+            out[list(solved)] = self._apply(tables, rows, hit).cpu().numpy()
+        self._unsolved = set(erased) - set(solved)
+        return out
+
+
 class ErasureCodePluginLrc(ErasureCodePlugin):
     def factory(self, profile: Profile):
         if profile.get("layers") or profile.get("mapping"):
+            if profile.get("device"):
+                return ErasureCodeLrcLayeredDevice()
             return ErasureCodeLrcLayered()
+        if profile.get("device"):
+            raise ErasureCodeError(
+                errno.EINVAL, "the LRC device path serves the layered "
+                "form (mapping= and layers=)")
         return ErasureCodeLrc()
 
 

@@ -4061,15 +4061,20 @@ class OSDDaemon:
         their host time split into `prep_ns` and `launch_ns` with the
         `calls` they cover (ops/bitsliced.launch_stages), and
         `k4_support`, the source rows K4's launches looked up against
-        the dense count (ops/bitsliced.k4_support_counts).  The stages
-        move only while a torch.profiler session records in the
-        daemon's process."""
+        the dense count (ops/bitsliced.k4_support_counts), and
+        `local_repair`, the layered LRC device path's plans and the
+        helper and rebuilt rows their applies read and wrote
+        (ec/plugins/ec_lrc.local_repair_counts).  The stages move only
+        while a torch.profiler session records in the daemon's
+        process."""
+        from ..ec.plugins import ec_lrc
         from ..ops import bitsliced
         out = self._profiler.profile(
             last=int(cmd["last"]) if "last" in cmd else None)
         out["osd"] = self.osd_id
         out["kernel_launches"] = bitsliced.launch_counts()
         out["k4_support"] = bitsliced.k4_support_counts()
+        out["local_repair"] = ec_lrc.local_repair_counts()
         out["kernel_stages"] = bitsliced.launch_stages()
         out["host_perf_owner"] = self._profiler_reporter
         return out

@@ -44,7 +44,11 @@ chunk of a CLAY pool reads only the repair planes of d helpers (1/q of
 each helper chunk) and rebuilds through the pool's ClayRepairPlan
 (K4): through the queue when one is wired, else one `apply_batch` a
 (lost, helpers) group.  A helper read failure falls back to the
-full-read decode for that object (`ec_clay_repair_fallbacks`).
+full-read decode for that object (`ec_clay_repair_fallbacks`).  A loss
+that a device plugin's minimum set repairs from fewer than k helpers
+(the layered LRC's local group) reads only those helpers and decodes
+on the full-read path's groups (`ec_local_repairs`; a failed helper
+read re-reads every source shard, `ec_local_repair_fallbacks`).
 
 The mesh plane (`mesh_codec=` or `mesh_service=`,
 parallel/mesh.DistributedStripeCodec): when a mesh codec serves the
@@ -327,6 +331,14 @@ def _build_ec_perf(name: str):
             .add_u64_counter("ec_clay_repair_fallbacks",
                              "CLAY plane-read repairs that fell back "
                              "to the full-read decode path")
+            .add_u64_counter("ec_local_repairs",
+                             "objects rebuilt from fewer than k helpers "
+                             "(the plugin's minimum set, LRC's local "
+                             "group)")
+            .add_u64_counter("ec_local_repair_fallbacks",
+                             "local repairs whose helper read failed "
+                             "and fell back to the full-read decode "
+                             "path")
             .add_u64_counter("ec_reconstruct_reads",
                              "degraded client reads served by "
                              "reconstruct-on-read")
@@ -529,6 +541,8 @@ class ECBackend:
             "clay_repair_launches": u64("ec_clay_repair_launches"),
             "clay_repair_fallbacks": u64("ec_clay_repair_fallbacks"),
             "clay_plans_cached": len(self._clay_plans),
+            "local_repairs": u64("ec_local_repairs"),
+            "local_repair_fallbacks": u64("ec_local_repair_fallbacks"),
             "mesh_repair_launches": u64("ec_mesh_repair_launches"),
             "reconstruct_reads": u64("ec_reconstruct_reads"),
             "reconstruct_read_bytes": u64("ec_reconstruct_read_bytes"),
@@ -1465,11 +1479,13 @@ class ECBackend:
         if err is not None:
             raise err
 
-    def _start_recovery_reads(self, oid: hobject_t,
-                              missing: list[int]) -> dict:
+    def _start_recovery_reads(self, oid: hobject_t, missing: list[int],
+                              sources=None) -> dict:
         """Phase 1 of a batched recovery: metadata probe + survivor read
-        fan-out for ONE object, returning the gathering state WITHOUT
-        waiting — a storm issues all its reads before the first wait."""
+        fan-out for ONE object (every shard not missing, or the fewer
+        `sources` of a local repair), returning the gathering state
+        WITHOUT waiting — a storm issues all its reads before the first
+        wait."""
         hinfo = self._get_hinfo(oid)
         chunk_len = None
         for s in range(self.n):
@@ -1484,14 +1500,17 @@ class ECBackend:
         glock = threading.Lock()
         done = {"n": 0}
         ready = threading.Event()
-        sources = [s for s in range(self.n) if s not in missing]
+        local = sources is not None
+        if not local:
+            sources = [s for s in range(self.n) if s not in missing]
+        need = min(self.k, len(sources))
 
         def on_done(sh, d):
             with glock:       # replies race on reader threads
                 if d is not None:
                     got[sh] = d
                 done["n"] += 1
-                fire = len(got) >= self.k or done["n"] >= len(sources)
+                fire = len(got) >= need or done["n"] >= len(sources)
             if fire:
                 ready.set()
 
@@ -1499,7 +1518,7 @@ class ECBackend:
             [(s, oid, 0, chunk_len) for s in sources], on_done)
         return {"oid": oid, "missing": list(missing), "hinfo": hinfo,
                 "chunk_len": chunk_len, "got": got, "glock": glock,
-                "ready": ready}
+                "ready": ready, "sources": tuple(sources), "local": local}
 
     def _verify_recovered(self, st: dict, s: int,
                           data: np.ndarray) -> None:
@@ -1563,7 +1582,9 @@ class ECBackend:
         # phase 1: every object's reads in flight before any wait.
         # Single-shard losses of a sub-chunked plugin with a repair
         # lowering take the CLAY path: only the q^{t-1} repair planes of
-        # d helpers are read (1/q of each helper chunk)
+        # d helpers are read (1/q of each helper chunk).  A loss that
+        # the plugin's minimum set repairs from fewer than k helpers
+        # (LRC's local group) reads only those helpers
         for oid, missing in items:
             try:
                 st = None
@@ -1573,7 +1594,7 @@ class ECBackend:
                     clay_states.append(st)
                 else:
                     states.append(self._start_recovery_reads(
-                        oid, missing))
+                        oid, missing, self._local_helpers(missing)))
             except Exception as e:  # noqa: BLE001 — per-object result
                 results[oid] = e
         # phase 2 (CLAY): collect plane reads; any helper failure falls
@@ -1606,14 +1627,25 @@ class ECBackend:
                 for st in sts:
                     results.setdefault(st["oid"], e)
         # phase 2 (full): collect; drop objects that can't reach k
-        # survivors
+        # survivors.  A local read short of its helpers re-reads every
+        # source shard: the re-read is appended to `states`, so this
+        # loop collects it too
         groups: dict[tuple, list[dict]] = {}
         for st in states:
             st["ready"].wait(timeout=self.read_timeout)
             with st["glock"]:
                 # snapshot: late on_done callbacks still write into got
                 have = dict(st["got"])
-            if len(have) < self.k:
+            if st["local"] and len(have) < len(st["sources"]):
+                if self.perf:
+                    self.perf.inc("ec_local_repair_fallbacks")
+                try:
+                    states.append(self._start_recovery_reads(
+                        st["oid"], st["missing"]))
+                except Exception as e:  # noqa: BLE001 — per-object result
+                    results[st["oid"]] = e
+                continue
+            if not st["local"] and len(have) < self.k:
                 results[st["oid"]] = ErasureCodeError(
                     5, f"cannot recover {st['oid']}: "
                        f"{len(have)} < k={self.k}")
@@ -1652,6 +1684,9 @@ class ECBackend:
             if clay and self.perf:
                 self.perf.inc("ec_clay_repair_launches")
                 self.perf.inc("ec_clay_repairs", len(sts))
+            elif self.perf:
+                self.perf.inc("ec_local_repairs",
+                              sum(st["local"] for st in sts))
             for st, shards in zip(sts, per_st):
                 try:
                     push = rec.push_for(st["oid"])
@@ -1667,6 +1702,26 @@ class ECBackend:
                     continue
                 rec.results.setdefault(st["oid"], None)
         return rec.results
+
+    # -- local repair (fewer than k helpers) --------------------------------
+
+    def _local_helpers(self, missing: list[int]) -> tuple[int, ...] | None:
+        """The helpers of a repair from fewer than k shards: the
+        plugin's minimum set for `missing`, where it names fewer than k
+        and the plugin decodes on its device (`decode_chunks_device`:
+        the layered LRC's local group).  None for every other plugin
+        and loss, which read every source shard."""
+        if not hasattr(self.ec_impl, "decode_chunks_device") or \
+                self.ec_impl.get_sub_chunk_count() != 1:
+            return None
+        avail = [s for s in range(self.n) if s not in missing]
+        try:
+            helpers = self.ec_impl.minimum_to_decode(list(missing), avail)
+        except ErasureCodeError:
+            return None
+        if len(helpers) >= self.k:
+            return None
+        return tuple(sorted(helpers))
 
     # -- CLAY plane-read repair ---------------------------------------------
 
@@ -1794,14 +1849,16 @@ class ECBackend:
                                sts: list[dict]) -> Callable[[], list]:
         """Launch the rebuild of one (survivors, targets) geometry
         group: one mesh decode_flat_batch of every object's survivor
-        rows when that plane is up; else width-capped concatenated
+        rows when that plane is up and the group read k of them (a
+        local repair's fewer helpers never take it); else width-capped
+        concatenated
         decodes, through the launch queue when one is wired so recovery
         decodes coalesce with other PGs'.  Sub-chunked codes (CLAY)
         never take the mesh and decode per object — their plane layout
         does not concatenate along the byte axis.  Returns the wait:
         per object {shard: data} for the targets."""
         erasures = list(erasures)
-        if self.mesh_codec is not None and \
+        if self.mesh_codec is not None and len(survivors) == self.k and \
                 self.ec_impl.get_sub_chunk_count() == 1:
             try:
                 rows_list = self.mesh_codec.decode_flat_batch(

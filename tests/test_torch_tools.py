@@ -324,6 +324,8 @@ def test_ceph_cli_daemon_folds_multiword_prefixes(tmp_path, capsys):
                    for st in prof["kernel_stages"].values())
         assert set(prof["k4_support"]) == {"launches", "rows_looked_up",
                                            "rows_dense"}
+        assert set(prof["local_repair"]) == {
+            "helper_rows", "rebuilt_rows", "plans_built", "plan_hits"}
         assert tcli.main(["daemon", asok, "launch", "queue",
                           "status"]) == 0
         assert "enabled" in json.loads(capsys.readouterr().out)
