@@ -1,10 +1,11 @@
 // K2 gf_encode_crc and K3 gf_encode_crc_acc: parity (m, n) = C (m, k) x
 // data (k, n) over GF(2^8) and crc32c linear parts L of all k+m shard
-// rows, from one launch, by one per-block body: the kernel template
-// below, instantiated once for K3 (kAcc) and twice for K2 (the shape
-// branches of kLaneTables).  K5 crc32c_rows, at the end of the file,
-// runs the same crc machinery with no parity, one warp a range of
-// blocks.
+// rows, from one launch.  K2 runs one per-block body, the kernel template
+// below, instantiated twice (the shape branches of kLaneTables).  K3
+// walks contiguous ranges of blocks (k3_walk_kernel, at the end of the
+// file).  K5 crc32c_rows runs the same crc machinery with no parity, one
+// warp a range of blocks.  The three share the tables, the lane crc
+// chains and the fold.
 //
 // K2 writes L = crc(block, 0) of every B-byte block of every shard row.
 // It replaces three Pallas kernels that compute that function and
@@ -24,40 +25,25 @@
 // are a drain's runs laid end to end, each front-padded with zeros to
 // a multiple of the block B = 4*wb; a zero prefix leaves L unchanged
 // (L(0^p || X) = L(X)) and encodes to zero parity, so each run's L
-// covers its every byte and the host folds no tail.
+// covers its every byte and the host folds no tail.  It replaces the
+// Pallas kernel `_make_gf_crc_kernel_w32_hier_acc`
+// (ceph_tpu/ops/bitsliced.py:539, via `_fused_hier_acc_call` :626),
+// which walks a sequential grid and keeps each run's L in an output
+// block resident in VMEM, folding acc <- A_tile . acc ^ L(tile) step by
+// step.  Its design is at k3_walk_kernel.
 //
-// K3 replaces the Pallas kernel `_make_gf_crc_kernel_w32_hier_acc`
-// (ceph_tpu/ops/bitsliced.py:539, via `_fused_hier_acc_call` :626).
-// That kernel walks a sequential grid and keeps each run's L in an
-// output block that stays resident in VMEM, folding
-// acc <- A_tile . acc ^ L(tile) step by step.  Thread blocks on the
-// H100 run in no order, so the design rests on the fold being
-// XOR-linear instead:
-//
-//     L(run) = XOR_b  A_{B * d_b} . L(block b),
-//
-// d_b = the number of the run's blocks after block b.  Each B-byte
-// block (a "tile" of the grid walk) computes its parity and the L of
-// its block, advances that L by d_b and XORs it into the (run, row)
-// slot with atomicXor: the result does not depend on the order the
-// blocks land in and is bit-exact, and a 512 KiB run keeps its 256
-// blocks of 2 KiB in flight.  The L output must be zero before the
-// atomics run: the wrapper zero-fills it on the same stream.
-//
-// What bounds both on the H100.  Device memory would allow the k data
-// rows in and the m parity rows out in 1.7 us at 8+3 x 512 KiB, but a
-// 512 KiB run is 256 blocks of 2 KiB, about two an SM, so the time is
-// one block's chain of steps, each bound by its latency or by the
-// instructions and shared-memory wavefronts of the two blocks on its
-// SM (K3's first design, K2's old body plus an advance, took 20.7 us;
-// tools/k3_phases.py stamps the steps).  The body shortens each:
+// What bounds K2's body on the H100.  Device memory would allow the k
+// data rows in and the m parity rows out in 1.7 us at 8+3 x 512 KiB,
+// but a 512 KiB row is 256 blocks of 2 KiB, about two an SM, so the
+// time is one block's chain of steps, each bound by its latency or by
+// the instructions and shared-memory wavefronts of the blocks on its SM
+// (tools/k3_phases.py stamped the steps of the same body in K3).  The
+// body shortens each:
 //  * Staging: every word of the k rows is queued at once with a 4-byte
 //    cp.async into rows padded after each lane's piece, so the crc's
 //    reads hit 32 distinct banks.  The tables' gathers from device
 //    memory go out before the copies, so they do not queue behind them;
-//    the tables are built while the copies fly, and
-//    K3's run is searched once per block, by the one warp that builds
-//    no lane table.
+//    the tables are built while the copies fly.
 //  * Parity by packed nibble tables: one lookup serves four parity
 //    rows (byte t of the entry is row t's product, as K1's packed
 //    table), two lookups a byte, each into 16 consecutive words, so a
@@ -73,23 +59,20 @@
 //    A_{(B/128) * j}, then lane l applies its own A_{(B/32) * (31 - l)}
 //    and five xor-shuffles sum the warp:
 //    L(block) = XOR_l A_{(B/32)(31-l)} . L_l.
-//  * K3's advance by d as one warp matvec a base-256 digit of d (one
-//    for a run of up to 256 blocks): the host's table holds
-//    A_{B * c * 256^i} for every digit value c and position i, and each
-//    lane loads its columns before the chains start.
 //  * 12 warps, so up to 12 shard rows each take one warp.
-// Shared memory (ops/bitsliced.k3_smem, the host's mirror): the parity's
-// nibble tables (1 KiB a group of four parity rows at k = 8), the lane
-// crc tables (32 KiB), the fold's nibble tables (17.5 KiB), k+m staged
-// rows, 16 bytes of run and distance.  Where that does not fit one
-// block (k+m rows of 4-8 KiB), K2 takes its narrow branch, chosen by
-// the shape alone (ops/bitsliced.k2_lane_tables and _crc_smem_bytes):
-// one crc table the lanes share (its lookups meet in banks) and no fold
-// tables, the lane and chain operators applied bit by bit from their
-// columns in device memory (through L1).  The grid
-// (ops/bitsliced.k3_launch) is at most one wave of the blocks the
-// launch bounds and the shared memory keep resident; blocks stride over
-// the rest, building their tables once.
+// Shared memory (ops/bitsliced._crc_smem_bytes, the host's mirror): the
+// parity's nibble tables (1 KiB a group of four parity rows at k = 8),
+// the lane crc tables (32 KiB), the fold's nibble tables (17.5 KiB), k+m
+// staged rows and 16 bytes: the layout of a one-stage K3 walk, whose run
+// slot K2 leaves unused.  Where that does not fit one block (k+m rows of
+// 4-8 KiB), K2 takes its narrow branch, chosen by the shape alone
+// (ops/bitsliced.k2_lane_tables): one crc table the lanes share (its
+// lookups meet in banks) and no fold tables, the lane and chain
+// operators applied bit by bit from their columns in device memory
+// (through L1).  The grid (ops/bitsliced.k3_launch with acc=False) is at
+// most one wave of the blocks the launch bounds and the shared memory
+// keep resident; blocks stride over the rest, building their tables
+// once.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -98,8 +81,8 @@
 
 namespace {
 
-constexpr int kThreads = 384;           // 12 warps
-constexpr int kMinBlocks = 3;           // resident an SM by the launch bounds
+constexpr int kThreads = 384;           // K2: 12 warps
+constexpr int kMinBlocks = 3;           // K2 blocks an SM by the launch bounds
 constexpr int kMaxThreadsPerSm = 2048;
 constexpr int kSmSmem = 233472;         // shared memory of one SM
 constexpr int kSmemReserved = 1024;     // kept by the card for each block
@@ -129,9 +112,9 @@ __host__ __device__ inline int k3_chains(int B) {
   return wpp % 4 == 0 ? 4 : wpp % 2 == 0 ? 2 : 1;
 }
 
-// Bytes of shared memory of one block: K3's layout with the lane crc
-// tables and the fold's nibble tables, or K2's narrow one with one crc
-// table and no fold tables.
+// Bytes of shared memory of one K2 block: with the lane crc tables and
+// the fold's nibble tables (a one-stage K3 walk's layout), or the narrow
+// one with one crc table and no fold tables.
 inline long long block_smem_bytes(int m, int k, int B, bool lane_tables) {
   const long long groups = (m + 3) / 4;
   return 4LL * (groups * k * 32 + (lane_tables ? 256 * 32 + kNibWords : 256) +
@@ -140,11 +123,9 @@ inline long long block_smem_bytes(int m, int k, int B, bool lane_tables) {
 
 #ifdef CTT_K3_PHASES
 // Phase probe (tools/k3_phases.py builds this file with CTT_K3_PHASES):
-// thread 0 of every block stamps clock64() at its start, after its own
-// share of the table builds, after each block-wide step of its first
-// tile and after warp 0's first row, and %globaltimer at its start and
-// end, into the buffer the probe's entry sets.  K5's stamps are listed
-// at its kernel.
+// thread 0 of every thread block of K3 or K5 stamps clock64() and
+// %globaltimer at the points listed at each kernel, into the buffer the
+// probe's entry sets.
 constexpr int kPhases = 9;
 __device__ unsigned long long* g_k3_phases;
 __device__ inline unsigned long long global_ns() {
@@ -152,21 +133,15 @@ __device__ inline unsigned long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
-#define K3_STAMP(i, v)                                                    \
-  do {                                                                    \
-    if (threadIdx.x == 0 && first && g_k3_phases)                         \
-      g_k3_phases[blockIdx.x * kPhases + (i)] = (v);                      \
-  } while (0)
-#define K3_PROBE_SYNC() __syncthreads()
-#define K5_STAMP(i, v)                                                    \
+#define PHASE_STAMP(i, v)                                                 \
   do {                                                                    \
     if (threadIdx.x == 0 && g_k3_phases)                                  \
       g_k3_phases[blockIdx.x * kPhases + (i)] = (v);                      \
   } while (0)
+#define PROBE_SYNC() __syncthreads()
 #else
-#define K3_STAMP(i, v) do {} while (0)
-#define K3_PROBE_SYNC() do {} while (0)
-#define K5_STAMP(i, v) do {} while (0)
+#define PHASE_STAMP(i, v) do {} while (0)
+#define PROBE_SYNC() do {} while (0)
 #endif
 
 __device__ inline void cp_async4(unsigned dst, const uint32_t* src) {
@@ -247,11 +222,9 @@ __device__ inline void build_lane_crc_table(uint32_t* ltab, int lane,
 // lane; then table (it - 256) & 7 of chain operator (it - 256) >> 3
 // (ops[1024 + 32*(j-1) + b]), to nib[4096 + 128*(j-1) + 16*i + v].  Its
 // four columns are loaded by fold_item_load, its 16 entries stored by
-// fold_item_store.  kThreads - 32 >= 256: the last warp builds no lane
-// crc table and searches the run.
+// fold_item_store.
 constexpr int kFoldItems = 32 * 8 + (kMaxChains - 1) * 8;
 static_assert(kFoldItems <= kThreads, "one fold item a thread");
-static_assert(kThreads - 32 >= 256, "the last warp builds no lane table");
 
 __device__ inline void fold_item_load(const uint32_t* ops, int it,
                                       uint32_t (&c)[4]) {
@@ -395,20 +368,19 @@ __device__ inline uint32_t lane_piece_crc(const uint32_t* p,
   return l;
 }
 
-// One thread block's walk over its B-byte blocks.  kAcc (K3): advance
-// each block's L to its run's end and XOR it into the (run, row) slot
-// of `lout`; else (K2) write it to slot (row, block).  kLaneTables:
-// K3's layout; else K2's narrow branch (one crc table, the operators'
-// columns read from `ops`).
-template <bool kAcc, bool kLaneTables>
+// K2: one thread block's walk over its B-byte blocks, striding by the
+// grid; each block's L goes to slot (row, block) of `lout`.
+// kLaneTables: the lane crc tables and the fold's nibble tables; else
+// the narrow branch (one crc table, the operators' columns read from
+// `ops`).
+template <bool kLaneTables>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
                      const uint8_t* __restrict__ in,
                      uint8_t* __restrict__ parity,
                      unsigned long long* __restrict__ lout,
-                     const uint32_t* __restrict__ ops,
-                     const int64_t* __restrict__ run_ends, int nruns, int m,
-                     int k, int64_t n, int B, int ndigits) {
+                     const uint32_t* __restrict__ ops, int m, int k,
+                     int64_t n, int B) {
   extern __shared__ __align__(16) uint32_t smem[];
   const int groups = (m + 3) / 4;
   const int S = k3_row_words(B);
@@ -416,7 +388,6 @@ gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
   uint32_t* ltab = T + groups * k * 32;        // 256 * 32 words, or 256
   uint32_t* nib = ltab + (kLaneTables ? 256 * 32 : 256);  // kNibWords, or 0
   uint32_t* rows = nib + (kLaneTables ? kNibWords : 0);   // k + m rows of S
-  int64_t* s_run = reinterpret_cast<int64_t*>(rows + (k + m) * S);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -424,21 +395,15 @@ gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
   const int wpp = B / 128;                     // words of a lane's piece
   const int pad = k3_pad(B);
   const int chains = k3_chains(B);
-  const uint32_t* digits = ops + kOpCols;      // ndigits x 256 operators
   // the crc table a lane reads, the chain and the lane fold operators
   const uint32_t* lt = kLaneTables ? ltab + lane : ltab;
   const uint32_t* chain = kLaneTables ? nib + 8 * 16 * 32 : ops + 32 * 32;
-#ifdef CTT_K3_PHASES
-  bool first = true;
-  K3_STAMP(0, clock64());
-  K3_STAMP(6, global_ns());
-#endif
 
   const int nT = groups * k * 32;               // entries of T
   const int64_t nblocks = n / B;
   for (int64_t blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
     const bool first_tile = blk == blockIdx.x;
-    // the previous block's crcs have read the rows and the run
+    // the previous block's crcs have read the rows
     if (!first_tile) __syncthreads();
     // the first block's table gathers go out before the staging copies,
     // so they do not queue behind them
@@ -461,37 +426,10 @@ gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
         T[it] = nibble_packed_word(tables, m, k, it);
       if (fold_item) fold_item_store(nib, threadIdx.x, fcol);
     }
-    if (kAcc && threadIdx.x == blockDim.x - 32) {
-      // the run of this block, by the last warp, which builds no lane
-      // table: the first run whose end lies past it (empty runs share
-      // their end with the run before and are skipped)
-      int lo = 0, hi = nruns - 1;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (run_ends[mid] > blk) hi = mid;
-        else lo = mid + 1;
-      }
-      s_run[0] = lo;
-      s_run[1] = run_ends[lo] - 1 - blk;       // blocks after this one
-    }
-    K3_STAMP(4, clock64());
     cp_async_wait_all();
     __syncthreads();
-    K3_STAMP(1, clock64());
     encode_staged(rows, T, parity, m, k, n, blk * B, B, S, wpp, pad);
     __syncthreads();
-    K3_STAMP(2, clock64());
-    const int64_t run = kAcc ? s_run[0] : 0;
-    const int64_t dist = kAcc ? s_run[1] : 0;
-    // this lane's column of the advance operator of each digit of the
-    // distance, loaded ahead of the crc chains
-    uint32_t dcol[kMaxDigits];
-#pragma unroll
-    for (int i = 0; i < kMaxDigits; ++i) {
-      const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
-      dcol[i] = kAcc && i < ndigits && c != 0
-                    ? __ldg(digits + (i * 256 + c) * 32 + lane) : 0u;
-    }
     for (int row = warp; row < k + m; row += nwarps) {
       const uint32_t lcrc = lane_piece_crc<kLaneTables>(
           rows + row * S + lane * (wpp + pad), lt, chain, wpp, chains);
@@ -504,42 +442,18 @@ gf_encode_crc_kernel(const uint8_t* __restrict__ tables,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         crc ^= __shfl_xor_sync(0xFFFFFFFFu, crc, o);
-#ifdef CTT_K3_PHASES
-      if (row == 0) K3_STAMP(5, clock64());
-#endif
-      if (kAcc) {
-#pragma unroll
-        for (int i = 0; i < kMaxDigits; ++i) {
-          if (i < ndigits && ((dist >> (kDigitBits * i)) & 255) != 0) {
-            uint32_t v = dcol[i] & (0u - ((crc >> lane) & 1u));
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1)
-              v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
-            crc = v;
-          }
-        }
-        if (lane == 0)
-          atomicXor(lout + run * (k + m) + row,
-                    static_cast<unsigned long long>(crc));
-      } else if (lane == 0) {
-        lout[row * nblocks + blk] = crc;       // zero-extended
-      }
+      if (lane == 0) lout[row * nblocks + blk] = crc;   // zero-extended
     }
-#ifdef CTT_K3_PHASES
-    K3_PROBE_SYNC();
-    K3_STAMP(3, clock64());
-    K3_STAMP(7, global_ns());
-    first = false;
-#endif
   }
 }
 
-// Launch one instantiation with `smem` bytes of shared memory on a grid
-// of at most one wave (ops/bitsliced.k3_launch); returns the CUDA error.
-template <bool kAcc, bool kLaneTables>
+// Launch one K2 instantiation with `smem` bytes of shared memory on a
+// grid of at most one wave (ops/bitsliced.k3_launch with acc=False);
+// returns the CUDA error.
+template <bool kLaneTables>
 int launch(const void* tables, const void* in, void* parity, void* lout,
-           const void* ops, const void* run_ends, int nruns, int m, int k,
-           long long n, int B, int ndigits, long long smem, void* stream) {
+           const void* ops, int m, int k, long long n, int B,
+           long long smem, void* stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -559,20 +473,19 @@ int launch(const void* tables, const void* in, void* parity, void* lout,
   const int sm = static_cast<int>(smem);
   if (sm > granted) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gf_encode_crc_kernel<kAcc, kLaneTables>,
+        gf_encode_crc_kernel<kLaneTables>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, sm);
     if (err != cudaSuccess) return static_cast<int>(err);
     granted = sm;
   }
-  gf_encode_crc_kernel<kAcc, kLaneTables>
+  gf_encode_crc_kernel<kLaneTables>
       <<<static_cast<unsigned>(blocks), kThreads, sm,
          static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(tables),
           static_cast<const uint8_t*>(in), static_cast<uint8_t*>(parity),
           static_cast<unsigned long long*>(lout),
-          static_cast<const uint32_t*>(ops),
-          static_cast<const int64_t*>(run_ends), nruns, m, k,
-          static_cast<int64_t>(n), B, ndigits);
+          static_cast<const uint32_t*>(ops), m, k, static_cast<int64_t>(n),
+          B);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -586,7 +499,7 @@ int launch(const void* tables, const void* in, void* parity, void* lout,
 // Here the rows' bodies (whole B-byte blocks; the host folds the tails)
 // are laid end to end with no padding, and row_ends holds each row's
 // cumulative block end.  Scrub rows share no block grid (a chunk mixes
-// objects and shard widths), so K3's one warp per shard row of a
+// objects and shard widths), so K2's one warp per shard row of a
 // column would idle most warps.  Instead each warp takes one
 // contiguous range of the concatenation's blocks, the ranges balanced
 // to within one block, and walks it in order with a running L of the
@@ -692,6 +605,14 @@ __device__ inline void stage_scrub_block_async(unsigned dst,
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// The word at byte address `a` of the block's shared window, for loads
+// from tables that stay unchanged once built.
+__device__ inline uint32_t lds32(unsigned a) {
+  uint32_t v;
+  asm("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(a));
+  return v;
+}
+
 // lane_piece_crc at the scrub block, its 16 words read 16 bytes at a
 // time: kScrubChains chains of consecutive words, the first from state
 // `seed`, joined by k3_ops's chain operators (A_{16 j} bytes: chain c
@@ -714,6 +635,10 @@ __device__ inline uint32_t scrub_piece_crc(const uint32_t* p,
   uint32_t crc[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) crc[c] = c == 0 ? seed : 0u;
+  // entry e of this lane's table at byte 128 e of lt, addressed in the
+  // shared window directly: a byte step is an AND, one address op, the
+  // load, a shift and an XOR
+  const unsigned lb = static_cast<unsigned>(__cvta_generic_to_shared(lt));
 #pragma unroll
   for (int t = 0; t < kW; ++t) {
 #pragma unroll
@@ -722,7 +647,7 @@ __device__ inline uint32_t scrub_piece_crc(const uint32_t* p,
     for (int b = 0; b < 4; ++b)
 #pragma unroll
       for (int c = 0; c < kC; ++c)
-        crc[c] = lt[(crc[c] & 0xFFu) << 5] ^ (crc[c] >> 8);
+        crc[c] = lds32(lb + ((crc[c] & 0xFFu) << 7)) ^ (crc[c] >> 8);
   }
   uint32_t l = crc[kC - 1];
 #pragma unroll
@@ -812,8 +737,8 @@ crc32c_rows_kernel(const uint8_t* __restrict__ in,
       static_cast<unsigned>(__cvta_generic_to_shared(rows));
   const uint32_t* src = reinterpret_cast<const uint32_t*>(in);
   const uint32_t* digits = ops + kOpCols;
-  K5_STAMP(0, clock64());
-  K5_STAMP(6, global_ns());
+  PHASE_STAMP(0, clock64());
+  PHASE_STAMP(6, global_ns());
   // the fold operators' columns go out first, so they do not queue
   // behind the copies
   uint32_t fcol[4];
@@ -843,7 +768,7 @@ crc32c_rows_kernel(const uint8_t* __restrict__ in,
     for (int64_t blk = b0; blk < b1 && blk < b0 + 2; ++blk)
       stage(static_cast<int>(blk - b0), blk);
   }
-  K5_STAMP(3, clock64());
+  PHASE_STAMP(3, clock64());
   // the tables, while the first blocks' copies fly
   build_lane_crc_table(ltab, lane, warp, nwarps);
   if (fold_item) fold_item_store(nib, threadIdx.x, fcol);
@@ -854,7 +779,7 @@ crc32c_rows_kernel(const uint8_t* __restrict__ in,
     fold_item_store(nib, it, c);
   }
   __syncthreads();
-  K5_STAMP(1, clock64());
+  PHASE_STAMP(1, clock64());
   if (b0 < b1) {
     const uint32_t* lt = ltab + lane;
     const uint32_t* chain = nib + 8 * 16 * 32;
@@ -868,7 +793,7 @@ crc32c_rows_kernel(const uint8_t* __restrict__ in,
       else
         cp_async_wait_group<0>();
       __syncwarp();
-      if (blk == b0) K5_STAMP(2, clock64());
+      if (blk == b0) PHASE_STAMP(2, clock64());
       uint32_t lcrc;
       if constexpr (kB == kScrubB)
         lcrc = scrub_piece_crc<kScrubChains>(
@@ -881,7 +806,7 @@ crc32c_rows_kernel(const uint8_t* __restrict__ in,
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
         L ^= __shfl_xor_sync(0xFFFFFFFFu, L, o);
-      if (blk == b0) K5_STAMP(4, clock64());
+      if (blk == b0) PHASE_STAMP(4, clock64());
       __syncwarp();          // every lane has read the row
       if (blk + 2 < b1) stage(cur, blk + 2);   // into the row it left
       if (blk + 1 == row_end) {
@@ -922,11 +847,11 @@ crc32c_rows_kernel(const uint8_t* __restrict__ in,
       if (lane == 0)
         atomicXor(lout + lo, static_cast<unsigned long long>(L));
     }
-    K5_STAMP(5, clock64());
+    PHASE_STAMP(5, clock64());
   }
-  K3_PROBE_SYNC();
-  K5_STAMP(7, global_ns());
-  K5_STAMP(8, clock64());
+  PROBE_SYNC();
+  PHASE_STAMP(7, global_ns());
+  PHASE_STAMP(8, clock64());
 }
 
 // Launch one instantiation of K5 (its shared memory granted once for
@@ -953,6 +878,390 @@ int launch_rows(unsigned blocks, int threads, int smem, const void* in,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 gf_encode_crc_acc: the walk.  The grid's thread blocks split the
+// n/B column blocks ("tiles") into contiguous ranges, balanced to within
+// one tile (ops/bitsliced.k3_ranges), and each walks its range in order
+// with a running L of each of the k+m shard rows, as K5's warps do:
+//
+//     L <- A_B . L ^ L(tile)
+//
+// which costs nothing beyond the tile's own L: lane 0 seeds its first
+// chain with L.  At a run end inside the range the rows' L go as they
+// are into the run's slots (atomicXor) and restart from 0; at the
+// range's end inside a run each is advanced once by the run's tiles
+// after the range (the base-256 digit tables of k3_ops) and XORed in.
+// A run spread over several ranges gets one XOR from each, in any
+// order, into slots the wrapper zero-fills on the same stream:
+//
+//     L(run) = XOR_ranges  A_{B * d_r} . L(the run's part in range r),
+//
+// d_r the run's tiles after range r.  The run of the range's first tile
+// is searched once (warp_row_search, by the last warp); the walk then
+// steps over run ends with the next end loaded ahead.
+//
+// What bounds it on the H100, at the write path's 8+3 and B = 2 KiB.
+// Device memory: a tile is 16 KiB in and 6 KiB of parity out, so 8,192
+// tiles (32 objects of 4 MiB) take 55 us at 3.35 TB/s; the walk with its
+// parity and crc cut out runs in 54 us.  The lookups: a tile costs ~58k
+// lane lookups (32,768 for the parity, two nibble lookups a data byte
+// for one packed group of four rows; 22,528 for the crc, one a shard
+// byte; 2,816 for the lane fold), ~2.45k shared-memory wavefronts with
+// the staged rows' reads and writes, against one a cycle an SM; and
+// the lookups' integer work (index, address, shift, XOR) runs on the
+// integer pipe at two warp instructions a cycle an SM.  At 62 tiles an
+// SM both come to ~2.3-2.5k cycles a tile, ~75 us, on other units than
+// the bytes.  K3's per-block design (today K2's body) reached neither:
+// each block staged a tile, waited, encoded, then crc'd it, with no copy
+// in flight while it computed and an advance and 11 atomics a tile
+// (~7.9k cycles a tile an SM, 247 us a call).  The walk:
+//  * Copies ahead: a ring of `depth` stages of the k data rows; tile
+//    i + depth - 1 is queued (one commit group a tile) as soon as every
+//    warp has left the stage tile i - 1 used, so with two stages tile
+//    i+1's copies fly while tile i is encoded and crc'd, with three
+//    tiles i+1 and i+2.  Two barriers a tile: the staged tile is
+//    complete; the parity rows are written.
+//  * The scrub block's layout at B = 2 KiB (kB = kScrubB, compiled
+//    apart as K5's): lane pieces 20 words apart, filled by 16-byte
+//    cp.async and read by the crc in 16-byte loads; the parity's
+//    threads take their words so that each warp's 4-byte reads and
+//    writes of a row meet no bank twice (walk_word).  Any other B runs
+//    K2's row layout (k3_pad), 4-byte copies and lane_piece_crc.
+//  * Few instructions a lookup: the parity's tables sit at an address
+//    the warp shares, so a lookup is one PRMT (the byte offset of a
+//    nibble's entry) and a load [offset + uniform base]; a crc byte step
+//    addresses the lane's table in the shared window directly (lds32).
+//  * Running L in registers: warp w takes rows w, w + 16, ..., the
+//    same every tile, and lane j of the warp keeps its j-th row's L
+//    (k + m <= 512).  Atomics fall to k+m a run end and a range end.
+//  * One grid of at most one resident wave and one table build a block.
+// tools/k3_phases.py stamps it: the first tile staged at ~6k SM cycles,
+// then ~8.1k cycles a tile a block with two blocks an SM (~4.1k a tile an
+// SM, 154 us a call): the shared-memory pipe ~60% busy, the rest the
+// crc chains' latency.  A crc by binary tensor-core products instead
+// (mma m16n8k256 b1 AND-popc against the 2 KiB block's crc matrix, held
+// in registers by 16 warps of a 32-warp block while the other 16
+// encode: 24 cycles a product, 0.665 a cycle an SM on this card) ran
+// exact at 148 us: the parity's own lookups keep the same queue full,
+// so its loads and the encode each took half again their time alone.
+// The shape rule (walk_shape, ops/bitsliced.k3_walk the host's mirror):
+// the first of kWalkShapes (blocks an SM, stages) whose layout fits, in
+// the scrub block's layout where B is the scrub block and it fits, else
+// K2's; at 8+3 x 2 KiB two blocks of 16 warps an SM, two stages each
+// (100,368 B a block: 50.5 KiB of tables, 2 x 20 KiB of data rows, 7.5
+// KiB of parity rows), which ran 183 us against 208 us for one block
+// with three stages and 194 us for two blocks with one.  One stage of
+// K2's layout is K2's own block, so every shape K2's layout admits is
+// admitted.
+constexpr int kWalkThreads = 512;       // 16 warps
+constexpr int kWalkWarps = kWalkThreads / 32;
+constexpr int kWalkMinBlocks = 2;       // resident an SM by the launch bounds
+constexpr int kWalkMaxRows = 32 * kWalkWarps;   // a lane's L a row
+// (blocks an SM, stages of the ring), in the order the walk takes them
+constexpr int kWalkShapes[][2] = {{2, 2}, {1, 3}, {1, 2}, {1, 1}};
+static_assert(kFoldItems <= kWalkThreads, "one fold item a thread");
+static_assert(kWalkThreads - 32 >= 256, "the last warp builds no lane table");
+
+// Words of a staged row: the scrub block's layout, or K2's (k3_row_words).
+__host__ __device__ inline int walk_row_words(int B, bool scrub) {
+  return scrub ? 32 * kScrubStride : k3_row_words(B);
+}
+
+// Bytes of one walk block: the parity's nibble tables, the lane crc
+// tables, the fold's nibble tables, `depth` stages of k data rows, m
+// parity rows and the run slot (16 bytes).
+inline long long walk_smem_bytes(int m, int k, int B, int depth,
+                                 bool scrub) {
+  const long long groups = (m + 3) / 4;
+  return 4LL * (groups * k * 32 + 256 * 32 + kNibWords +
+                static_cast<long long>(depth * k + m) *
+                    walk_row_words(B, scrub)) + 16;
+}
+
+struct WalkShape {
+  int per_sm, depth;
+  bool scrub;
+  long long smem;
+};
+
+// The walk's shape for (m, k, B); false where not even one stage of
+// K2's layout fits one block.
+inline bool walk_shape(int m, int k, int B, WalkShape& out) {
+  for (const auto& c : kWalkShapes) {
+    for (int scrub = B == kScrubB ? 1 : 0; scrub >= 0; --scrub) {
+      const long long smem = walk_smem_bytes(m, k, B, c[1], scrub);
+      if (smem <= kSmemLimit && c[0] * (smem + kSmemReserved) <= kSmSmem) {
+        out = {c[0], c[1], scrub != 0, smem};
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+// Item w (0 .. W-1) of a group's parity words in the scrub block's
+// layout: the warp of 32 items takes 8 lane pieces a (8 apart by the
+// warp) and 4 words c of each, so that its staged indices 20a + c fill
+// 32 distinct banks (20a mod 32 over 8 consecutive a is 0, 20, 8, 28,
+// 16, 4, 24, 12).  Returns the word of the tile; *pw its staged index.
+__device__ inline int walk_word(int w, int* pw) {
+  const int a = 8 * ((w >> 5) & 3) + ((w & 31) >> 2);
+  const int c = 4 * (w >> 7) + (w & 3);
+  *pw = kScrubStride * a + c;
+  return 16 * a + c;
+}
+
+// Probe stamps (CTT_K3_PHASES; thread 0, so warp 0's rows): 0/6 start
+// (clock64 / %globaltimer), 1 tables built and run searched, 2 the first
+// tile staged, 3 its parity written, 4 warp 0's crcs of it, 5 warp 0's
+// crcs of the range's last tile, 8/7 the end after the range's flush
+// and a barrier.
+template <int kB>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
+k3_walk_kernel(const uint8_t* __restrict__ tables,
+               const uint8_t* __restrict__ in,
+               uint8_t* __restrict__ parity,
+               unsigned long long* __restrict__ lout,
+               const uint32_t* __restrict__ ops,
+               const int64_t* __restrict__ run_ends, int nruns, int m,
+               int k, int64_t n, int B_, int ndigits, int depth) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  constexpr bool kScrub = kB == kScrubB;
+  const int B = kB ? kB : B_;
+  const int W = B / 4;
+  const int wpp = B / 128;
+  const int pad = k3_pad(B);
+  const int chains = k3_chains(B);
+  const int S = walk_row_words(B, kScrub);
+  const int groups = (m + 3) / 4;
+  const int rtot = k + m;
+  uint32_t* T = smem;                          // groups * k * 32 words
+  uint32_t* ltab = T + groups * k * 32;        // 256 * 32 words
+  uint32_t* nib = ltab + 256 * 32;             // kNibWords
+  uint32_t* ring = nib + kNibWords;            // depth stages of k rows
+  uint32_t* par = ring + depth * k * S;        // m parity rows
+  int64_t* s_run = reinterpret_cast<int64_t*>(par + m * S);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const uint32_t* digits = ops + kOpCols;
+  const uint32_t* lt = ltab + lane;
+  const uint32_t* chain = nib + 8 * 16 * 32;
+  PHASE_STAMP(0, clock64());
+  PHASE_STAMP(6, global_ns());
+  // this block's range [t0, t1): the tiles split over the grid, the
+  // first `rem` ranges one tile longer
+  const int64_t ntiles = n / B;
+  const int64_t per = ntiles / gridDim.x, rem = ntiles % gridDim.x;
+  const int64_t bx = blockIdx.x;
+  const int64_t t0 = bx * per + (bx < rem ? bx : rem);
+  const int64_t t1 = t0 + per + (bx < rem ? 1 : 0);
+  // queue tile t's k data rows into stage s (one commit group a call of
+  // commit(), empty ones included, so that the group count stays fixed)
+  auto queue = [&](int s, int64_t t) {
+    uint32_t* dst = ring + s * k * S;
+    if constexpr (kScrub) {
+      const unsigned base =
+          static_cast<unsigned>(__cvta_generic_to_shared(dst));
+      const uint4* src = reinterpret_cast<const uint4*>(in + t * B);
+      const int64_t rs = n / 16;               // 16-byte chunks of a row
+      for (int q = threadIdx.x; q < k * (kScrubB / 16); q += blockDim.x) {
+        const int j = q / (kScrubB / 16), v = q % (kScrubB / 16);
+        cp_async16(
+            base + 4u * (j * S + kScrubStride * (v >> 2) + 4 * (v & 3)),
+            src + j * rs + v);
+      }
+    } else {
+      stage_rows_async(dst, in, k, n, t * B, B, S, wpp, pad);
+    }
+  };
+  auto commit = [] { asm volatile("cp.async.commit_group;\n" ::); };
+  // the table gathers go out first, so they do not queue behind the
+  // copies; then the first tiles' copies, then the search
+  const int nT = groups * k * 32;
+  uint32_t tword = 0, fcol[4];
+  const bool fold_item = threadIdx.x < kFoldItems;
+  if (threadIdx.x < nT) tword = nibble_packed_word(tables, m, k, threadIdx.x);
+  if (fold_item) fold_item_load(ops, threadIdx.x, fcol);
+  for (int d = 0; d < depth - 1; ++d) {
+    if (t0 + d < t1) queue(d, t0 + d);
+    commit();
+  }
+  if (warp == nwarps - 1) {
+    int64_t end;
+    const int run = warp_row_search(run_ends, nruns, t0, lane, end);
+    if (lane == 0) {
+      s_run[0] = run;
+      s_run[1] = end;
+    }
+  }
+  // the tables, while the copies fly (the lane crc tables by warps 0-7)
+  build_lane_crc_table(ltab, lane, warp, nwarps);
+  if (threadIdx.x < nT) T[threadIdx.x] = tword;
+  for (int it = threadIdx.x + blockDim.x; it < nT; it += blockDim.x)
+    T[it] = nibble_packed_word(tables, m, k, it);
+  if (fold_item) fold_item_store(nib, threadIdx.x, fcol);
+  __syncthreads();
+  PHASE_STAMP(1, clock64());
+  int run = static_cast<int>(s_run[0]);
+  int64_t run_end = s_run[1];
+  int64_t next_end = run + 1 < nruns ? run_ends[run + 1] : run_end;
+  uint32_t held = 0;          // lane j: the running L of this warp's row j
+  for (int64_t t = t0; t < t1; ++t) {
+    const int i = static_cast<int>(t - t0);
+    const int s = i % depth;
+    if (depth == 1) {
+      if (i > 0) __syncthreads();              // every warp left the stage
+      queue(0, t);
+      commit();
+    }
+    // tile t's copies are done: depth - 2 groups were queued after it
+    if (depth == 3)
+      cp_async_wait_group<1>();
+    else
+      cp_async_wait_group<0>();
+    __syncthreads();
+    if (t == t0) PHASE_STAMP(2, clock64());
+    if (depth > 1) {
+      // into the stage that tile t - 1 left
+      if (t + depth - 1 < t1) queue((i + depth - 1) % depth, t + depth - 1);
+      commit();
+    }
+    // parity: a word of every parity row of a group a thread and word,
+    // into the staged parity rows and to `parity`
+    const uint32_t* rows = ring + s * k * S;
+    for (int g = 0; g < groups; ++g) {
+      // the group's tables, at an address the warp shares
+      const char* Tg = reinterpret_cast<const char*>(T + g * k * 32);
+      for (int item = threadIdx.x; item < W; item += blockDim.x) {
+        int w, pw;
+        if constexpr (kScrub) {
+          w = walk_word(item, &pw);
+        } else {
+          w = item;
+          pw = w + (w / wpp) * pad;
+        }
+        uint32_t acc[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < k; ++j) {
+          const uint32_t x = rows[j * S + pw];
+          // the byte offsets of each byte's two entries: 4 x its low
+          // nibble, and 64 + 4 x its high one, one PRMT a lookup
+          const uint32_t lo = (x << 2) & 0x3C3C3C3Cu;
+          const uint32_t hi = (x >> 2) & 0x3C3C3C3Cu;
+          const char* Tj = Tg + 128 * j;
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[b] ^= *reinterpret_cast<const uint32_t*>(
+                          Tj + __byte_perm(lo, 0, 0x4440 | b)) ^
+                      *reinterpret_cast<const uint32_t*>(
+                          Tj + 64 + __byte_perm(hi, 0, 0x4440 | b));
+        }
+        ctt::transpose4(acc);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = 4 * g + r;
+          if (row < m) {
+            par[row * S + pw] = acc[r];
+            reinterpret_cast<uint32_t*>(parity + row * n + t * B)[w] =
+                acc[r];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    if (t == t0) PHASE_STAMP(3, clock64());
+    // the crcs: this warp's rows, each L carried from the tile before
+    const bool run_ends_here = t + 1 == run_end;
+    for (int row = warp, j = 0; row < rtot; row += nwarps, ++j) {
+      const uint32_t* p = row < k ? rows + row * S : par + (row - k) * S;
+      const uint32_t seed = __shfl_sync(0xFFFFFFFFu, held, j);
+      uint32_t lcrc;
+      if constexpr (kScrub)
+        lcrc = scrub_piece_crc<kScrubChains>(p + lane * kScrubStride, lt,
+                                             chain, lane == 0 ? seed : 0u);
+      else
+        lcrc = lane_piece_crc<true>(p + lane * (wpp + pad), lt, chain, wpp,
+                                    chains, lane == 0 ? seed : 0u);
+      uint32_t L = apply_nibbles(nib + lane, 32, lcrc);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        L ^= __shfl_xor_sync(0xFFFFFFFFu, L, o);
+      if (run_ends_here) {
+        // the run ends here: its L needs no advance
+        if (lane == 0)
+          atomicXor(lout + static_cast<int64_t>(run) * rtot + row,
+                    static_cast<unsigned long long>(L));
+        L = 0;
+      }
+      if (lane == j) held = L;
+    }
+    if (t == t0) PHASE_STAMP(4, clock64());
+    if (run_ends_here && t + 1 < t1) {
+      // on to the next run with a body
+      ++run;
+      run_end = next_end;
+      while (run_end <= t + 1) run_end = run_ends[++run];
+      next_end = run + 1 < nruns ? run_ends[run + 1] : run_end;
+    }
+  }
+  PHASE_STAMP(5, clock64());
+  if (t1 < run_end) {
+    // the range ends inside the run: advance each row's L by the run's
+    // tiles after the range, one operator a nonzero base-256 digit
+    const int64_t dist = run_end - t1;
+    uint32_t dcol[kMaxDigits];
+#pragma unroll
+    for (int i = 0; i < kMaxDigits; ++i) {
+      const int c = static_cast<int>((dist >> (kDigitBits * i)) & 255);
+      dcol[i] = i < ndigits && c != 0
+                    ? __ldg(digits + (i * 256 + c) * 32 + lane) : 0u;
+    }
+    for (int row = warp, j = 0; row < rtot; row += nwarps, ++j) {
+      uint32_t L = __shfl_sync(0xFFFFFFFFu, held, j);
+#pragma unroll
+      for (int i = 0; i < kMaxDigits; ++i) {
+        if (i < ndigits && ((dist >> (kDigitBits * i)) & 255) != 0) {
+          uint32_t v = dcol[i] & (0u - ((L >> lane) & 1u));
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            v ^= __shfl_xor_sync(0xFFFFFFFFu, v, o);
+          L = v;
+        }
+      }
+      if (lane == 0)
+        atomicXor(lout + static_cast<int64_t>(run) * rtot + row,
+                  static_cast<unsigned long long>(L));
+    }
+  }
+  PHASE_STAMP(8, clock64());
+  PROBE_SYNC();
+  PHASE_STAMP(7, global_ns());
+}
+
+// Launch one instantiation of the walk (its shared memory granted once
+// for the largest size seen, as launch() does).
+template <int kB>
+int launch_walk(unsigned blocks, int smem, const void* tables,
+                const void* in, void* parity, void* lacc, const void* ops,
+                const void* run_ends, int nruns, int m, int k, long long n,
+                int B, int ndigits, int depth, void* stream) {
+  static int granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k3_walk_kernel<kB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    granted = smem;
+  }
+  k3_walk_kernel<kB><<<blocks, kWalkThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(tables), static_cast<const uint8_t*>(in),
+      static_cast<uint8_t*>(parity), static_cast<unsigned long long*>(lacc),
+      static_cast<const uint32_t*>(ops),
+      static_cast<const int64_t*>(run_ends), nruns, m, k,
+      static_cast<int64_t>(n), B, ndigits, depth);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K2.  tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
@@ -971,12 +1280,12 @@ extern "C" int ctt_gf_encode_crc(const void* tables, const void* in,
   if (B % 128 || B <= 0 || n % B) return cudaErrorInvalidValue;
   const long long wide = block_smem_bytes(m, k, B, true);
   if (wide <= kSmemLimit)
-    return launch<false, true>(tables, in, parity, lout, ops, nullptr, 1, m,
-                               k, n, B, 0, wide, stream);
+    return launch<true>(tables, in, parity, lout, ops, m, k, n, B, wide,
+                        stream);
   const long long narrow = block_smem_bytes(m, k, B, false);
   if (narrow > kSmemLimit) return cudaErrorInvalidValue;
-  return launch<false, false>(tables, in, parity, lout, ops, nullptr, 1, m,
-                              k, n, B, 0, narrow, stream);
+  return launch<false>(tables, in, parity, lout, ops, m, k, n, B, narrow,
+                       stream);
 }
 
 // K3.  tables (m, k, 256) uint8; in (k, n) uint8; parity (m, n) uint8;
@@ -995,12 +1304,27 @@ extern "C" int ctt_gf_encode_crc_acc(const void* tables, const void* in,
                                      const void* ops, const void* run_ends,
                                      int nruns, int m, int k, long long n,
                                      int B, int ndigits, void* stream) {
-  const long long smem = block_smem_bytes(m, k, B, true);
-  if (smem > kSmemLimit || B % 128 || B <= 0 || n % B || nruns < 1 ||
-      ndigits < 1 || ndigits > kMaxDigits)
+  WalkShape ws;
+  if (B % 128 || B <= 0 || n % B || nruns < 1 || ndigits < 1 ||
+      ndigits > kMaxDigits || k + m > kWalkMaxRows ||
+      !walk_shape(m, k, B, ws))
     return cudaErrorInvalidValue;
-  return launch<true, true>(tables, in, parity, lacc, ops, run_ends, nruns,
-                            m, k, n, B, ndigits, smem, stream);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  // at most one resident wave, and no range empty
+  long long blocks = n / B;
+  if (blocks > static_cast<long long>(ws.per_sm) * sms)
+    blocks = static_cast<long long>(ws.per_sm) * sms;
+  if (blocks < 1) blocks = 1;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  const int sm = static_cast<int>(ws.smem);
+  if (ws.scrub)
+    return launch_walk<kScrubB>(grid, sm, tables, in, parity, lacc, ops,
+                                run_ends, nruns, m, k, n, B, ndigits,
+                                ws.depth, stream);
+  return launch_walk<0>(grid, sm, tables, in, parity, lacc, ops, run_ends,
+                        nruns, m, k, n, B, ndigits, ws.depth, stream);
 }
 
 // K5.  in (nblocks * B,) uint8: the rows' bodies laid end to end; lout

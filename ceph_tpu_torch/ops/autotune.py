@@ -6,7 +6,8 @@ only the axes that change a CUDA launch are swept:
 
   * `wb` — the hier crc block in 4-byte words (256, 512, 1024: blocks
     of 1, 2 and 4 KiB).  It sets K2/K3's thread-block count and shared
-    memory per block, and the depth of the per-run fold;
+    memory per block, K3's walk shape (2 KiB takes the scrub block's
+    layout), and the depth of the per-run fold;
   * `combine` — "xla": K2 (per-block L) then one combine_crcs_pow2
     chain of small launches per run; "kernel": K3 folds every run's L
     inside the launch (csrc/gf_encode_crc_acc.cu).

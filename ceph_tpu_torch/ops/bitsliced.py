@@ -28,13 +28,17 @@ Four hand-written CUDA kernels (csrc/) carry the EC data plane:
   L per (run, shard) of a drain's front-padded runs, one launch: the
   contract of Pallas kernel #4 (`_fused_hier_acc_call` :626), entry
   `fused_hier_acc_call`.  The write path's `combine="kernel"` point.
-  K2 and K3 share one per-block body: packed parity by nibble tables, a
-  crc table copy per lane with four interleaved chains and a fold of
-  one nibble-table matvec a lane; K3 then advances each block's L by
-  base-256 digits to its run's end, K2 writes it.  `k3_smem` and
+  K2 and K3 share their tables: packed parity by nibble tables, a crc
+  table copy per lane with interleaved chains and a fold of one
+  nibble-table matvec a lane.  K2 writes each block's L from a
+  per-block body; K3 walks one contiguous range of blocks a thread
+  block with the next block's copies in flight and a running L per
+  shard row, XORed into a run's slot at its end or, advanced by
+  base-256 digits, at the range's end.  `k3_walk` / `k3_smem` and
   `_crc_smem_bytes` (layouts; `k2_lane_tables` K2's branch by shape),
-  `k3_launch` (grid) and `k3_ops` (the operators) are the host's pure
-  mirrors.
+  `k3_launch` (grid), `k3_ranges` and `k3_ops` (the operators) are the
+  host's pure mirrors; `k3_walk_counts()` counts the tiles and ranges
+  K3's launches walked.
 * K4 `gf_bitmatmul_stream` (csrc/gf_bitmatmul_stream.cu) — K1's
   function with the contraction (the k source rows) split into passes
   whose packed tables fit one block, the partials XOR-accumulated in
@@ -348,6 +352,7 @@ def k1_launch(n: int, k: int, r: int, sm_count: int, tile: int | None = None,
     return thread_bytes, max(1, min(blocks, per_sm * sm_count))
 
 
+@functools.lru_cache(maxsize=16)
 @functools.lru_cache(maxsize=16)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
@@ -866,10 +871,14 @@ gf_encode_with_crc.launches = 0
 # K3: fused parity + one crc32c L per (run, shard)
 # ----------------------------------------------------------------------------
 
-K3_THREADS = 384             # threads of a K3 block: 12 warps
-# resident K3 blocks an SM that the launch bounds of
+K2_THREADS = 384             # threads of a K2 block: 12 warps
+# resident K2 blocks an SM that the launch bounds of
 # csrc/gf_encode_crc_acc.cu guarantee (at most 56 registers a thread)
-K3_BLOCKS_PER_SM = 3
+K2_BLOCKS_PER_SM = 3
+K3_THREADS = 512             # threads of a K3 walk block: 16 warps
+# (blocks an SM, stages of the ring) of the K3 walk, in the order
+# csrc/gf_encode_crc_acc.cu's walk_shape takes them
+K3_WALK_SHAPES = ((2, 2), (1, 3), (1, 2), (1, 1))
 MAX_THREADS_PER_SM = 2048
 K3_DIGITS = 4                # base-256 digits of a distance the advance covers
 K3_MAX_RUN_BLOCKS = 1 << 27  # blocks of one run
@@ -883,27 +892,30 @@ K3_NIB_WORDS = 8 * 16 * 32 + (K3_MAX_CHAINS - 1) * 8 * 16
 
 
 def k3_pad(block: int) -> int:
-    """Pad words after each lane's piece (block/128 words) of a row K3
-    stages: 1, or 2 where the piece is odd, so that piece + pad is odd
-    and the 32 lanes' word t of their pieces lie in 32 distinct banks."""
+    """Pad words after each lane's piece (block/128 words) of a row K2
+    (and K3 off the scrub block) stages: 1, or 2 where the piece is odd,
+    so that piece + pad is odd and the 32 lanes' word t of their pieces
+    lie in 32 distinct banks."""
     return 2 if (block // 128) % 2 else 1
 
 
 def k3_chains(block: int) -> int:
-    """Independent crc chains a K3 lane runs over its piece of
-    block/128 words: 4, 2 or 1, whichever divides the piece."""
+    """Independent crc chains a K2 (and K3 off the scrub block) lane
+    runs over its piece of block/128 words: 4, 2 or 1, whichever
+    divides the piece."""
     wpp = block // 128
     return 4 if wpp % 4 == 0 else 2 if wpp % 2 == 0 else 1
 
 
 def _block_smem(m: int, k: int, block: int, lane_tables: bool = True) -> int:
-    """Bytes of shared memory of one block of K3's per-block body
+    """Bytes of shared memory of one block of K2's per-block body
     (csrc/gf_encode_crc_acc.cu block_smem_bytes mirrors it): the nibble
     tables of the packed parity (32 words for each group of four parity
     rows and data row); with `lane_tables` the lane crc tables (32 KiB:
     entry e of lane l at word 32*e + l) and the fold's nibble tables
     (K3_NIB_WORDS words), else one crc table (1 KiB); k+m staged rows of
-    block + 128*k3_pad(block) bytes; and 16 bytes of run and distance."""
+    block + 128*k3_pad(block) bytes; and 16 bytes, a one-stage K3 walk's
+    run slot, unused by K2."""
     tables = 256 * 32 + K3_NIB_WORDS if lane_tables else 256
     words = (-(-m // 4) * k * 32 + tables
              + (k + m) * (block // 4 + 32 * k3_pad(block)))
@@ -916,17 +928,54 @@ def _check_block(name: str, block: int) -> None:
                          f"of 128, got {block}")
 
 
-@functools.lru_cache(maxsize=1024)
 def k3_smem(m: int, k: int, block: int) -> int:
-    """Bytes of shared memory of one K3 block: _block_smem with the lane
-    tables.  Raises ValueError where the block is not a positive multiple
-    of 128 or the layout exceeds SMEM_LIMIT."""
+    """Bytes of shared memory of one K3 block at its walk shape
+    (k3_walk).  Raises ValueError where the block is not a positive
+    multiple of 128 or no walk shape fits: exactly the shapes whose K2
+    layout with the lane tables (_block_smem) exceeds SMEM_LIMIT."""
+    return k3_walk(m, k, block).smem
+
+
+class K3Walk(NamedTuple):
+    """The shape of K3's walk for (m, k, block): `per_sm` resident
+    thread blocks an SM, `depth` stages of the k data rows' ring,
+    `scrub` the scrub block's row layout (else K2's, k3_pad), `smem`
+    bytes of shared memory a thread block."""
+    per_sm: int
+    depth: int
+    scrub: bool
+    smem: int
+
+
+def _walk_smem(m: int, k: int, block: int, depth: int, scrub: bool) -> int:
+    """Bytes of one K3 walk block (walk_smem_bytes mirrors it): the
+    parity's nibble tables, the lane crc tables, the fold's nibble
+    tables, `depth` stages of k staged data rows and m staged parity
+    rows (the scrub block's 32 x K5_SCRUB_STRIDE words, or K2's rows),
+    and 16 bytes of run slot.  One stage of K2's rows is K2's block."""
+    row = 32 * K5_SCRUB_STRIDE if scrub else block // 4 + 32 * k3_pad(block)
+    return 4 * (-(-m // 4) * k * 32 + 256 * 32 + K3_NIB_WORDS
+                + (depth * k + m) * row) + 16
+
+
+@functools.lru_cache(maxsize=1024)
+def k3_walk(m: int, k: int, block: int) -> K3Walk:
+    """K3's walk shape, a pure function of (m, k, block) (walk_shape in
+    csrc/gf_encode_crc_acc.cu chooses the same): the first of
+    K3_WALK_SHAPES (blocks an SM, stages) whose block fits one thread
+    block and that many an SM, in the scrub block's row layout where
+    the block is the scrub block and it fits, else in K2's.  Raises
+    ValueError where the block is not a positive multiple of 128 or not
+    even one stage of K2's rows fits."""
     _check_block("gf_encode_crc_acc", block)
-    smem = _block_smem(m, k, block)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"gf_encode_crc_acc: {smem} bytes of shared memory "
-                         "exceed one block's")
-    return smem
+    for per_sm, depth in K3_WALK_SHAPES:
+        for scrub in (True, False) if block == K5_SCRUB_BLOCK else (False,):
+            smem = _walk_smem(m, k, block, depth, scrub)
+            if smem <= SMEM_LIMIT and \
+                    per_sm * (smem + BLOCK_SMEM_RESERVED) <= SM_SMEM:
+                return K3Walk(per_sm, depth, scrub, smem)
+    raise ValueError(f"gf_encode_crc_acc: {_walk_smem(m, k, block, 1, False)}"
+                     " bytes of shared memory exceed one block's")
 
 
 def k2_lane_tables(m: int, k: int, block: int) -> bool:
@@ -957,15 +1006,26 @@ def k3_launch(n: int, block: int, k: int, m: int, sm_count: int,
               acc: bool = True) -> int:
     """K3's grid for a width of n bytes, and with acc=False K2's
     (csrc/gf_encode_crc_acc.cu computes the same): one thread block for
-    each block-byte tile of the width, at most one wave — sm_count times
-    the blocks an SM keeps resident by the launch bounds, threads and
-    shared memory (k3_smem, or K2's _crc_smem_bytes) — the blocks
-    striding over the rest."""
-    smem = (k3_smem if acc else _crc_smem_bytes)(m, k, block) \
-        + BLOCK_SMEM_RESERVED
-    per_sm = max(1, min(K3_BLOCKS_PER_SM, MAX_THREADS_PER_SM // K3_THREADS,
-                        SM_SMEM // smem))
+    each block-byte tile of the width, at most one wave.  K3's wave is
+    sm_count times its walk shape's blocks an SM (k3_walk), each block
+    walking one range of tiles (k3_ranges); K2's is sm_count times the
+    blocks an SM keeps resident by its launch bounds, threads and shared
+    memory (_crc_smem_bytes), the blocks striding over the rest."""
+    if acc:
+        per_sm = k3_walk(m, k, block).per_sm
+    else:
+        smem = _crc_smem_bytes(m, k, block) + BLOCK_SMEM_RESERVED
+        per_sm = max(1, min(K2_BLOCKS_PER_SM,
+                            MAX_THREADS_PER_SM // K2_THREADS,
+                            SM_SMEM // smem))
     return max(1, min(n // block, per_sm * sm_count))
+
+
+def k3_ranges(ntiles: int, grid: int) -> list[tuple[int, int]]:
+    """The contiguous tile range [t0, t1) of each of K3's `grid` thread
+    blocks, in order: ntiles split evenly, the first ntiles % grid
+    ranges one tile longer (K5's rule over warps, k5_ranges)."""
+    return k5_ranges(ntiles, grid)
 
 
 @functools.lru_cache(maxsize=16)
@@ -1070,6 +1130,7 @@ def fused_hier_acc_call(tables: torch.Tensor, chunks: torch.Tensor,
         if st:
             st.launched()
         fused_hier_acc_call.launches += 1
+        _count_k3_walk(n, block, k, m, _sm_count(dev))
         return parity, lacc
     finally:
         if st:
@@ -1077,6 +1138,31 @@ def fused_hier_acc_call(tables: torch.Tensor, chunks: torch.Tensor,
 
 
 fused_hier_acc_call.launches = 0
+# K3 launches on the card since the last reset: [launches, tiles walked,
+# ranges (thread blocks) that walked them]
+_walk = [0, 0, 0]
+_walk_lock = threading.Lock()
+
+
+def _count_k3_walk(n: int, block: int, k: int, m: int, sms: int) -> None:
+    """Count one K3 launch over n bytes a row: its n / block tiles and
+    its grid's ranges (k3_launch), from the shapes on the host."""
+    grid = k3_launch(n, block, k, m, sms)
+    with _walk_lock:
+        _walk[0] += 1
+        _walk[1] += n // block
+        _walk[2] += grid
+
+
+def k3_walk_counts() -> dict[str, int]:
+    """K3's launches on the card since the last reset: `launches`, the
+    `tiles` (block-byte column blocks) they walked and the `ranges`, one
+    a thread block, they walked them in.  tiles / ranges is how many
+    tiles a thread block walked with the next one's copies in flight;
+    1.0 means none did.  Kept apart from launch_counts(), whose values
+    count launches."""
+    with _walk_lock:
+        return dict(zip(("launches", "tiles", "ranges"), _walk))
 
 
 def _acc_launch_args(run_blocks, device: torch.device):
@@ -1326,11 +1412,14 @@ def launch_stages() -> dict[str, dict[str, int]]:
 
 
 def reset_launch_counts() -> None:
-    """Zero launch_counts(), launch_stages() and k4_support_counts()."""
+    """Zero launch_counts(), launch_stages(), k4_support_counts() and
+    k3_walk_counts()."""
     for f in KERNEL_WRAPPERS:
         f.launches = 0
     with _support_lock:
         _support[:] = [0, 0, 0]
+    with _walk_lock:
+        _walk[:] = [0, 0, 0]
     with _stage_lock:
         for tot in _stage_totals.values():
             tot[:] = [0, 0, 0]

@@ -4061,7 +4061,9 @@ class OSDDaemon:
         their host time split into `prep_ns` and `launch_ns` with the
         `calls` they cover (ops/bitsliced.launch_stages), and
         `k4_support`, the source rows K4's launches looked up against
-        the dense count (ops/bitsliced.k4_support_counts), and
+        the dense count (ops/bitsliced.k4_support_counts), `k3_walk`,
+        the tiles K3's launches walked and the ranges they walked them
+        in (ops/bitsliced.k3_walk_counts), and
         `local_repair`, the layered LRC device path's plans and the
         helper and rebuilt rows their applies read and wrote
         (ec/plugins/ec_lrc.local_repair_counts).  The stages move only
@@ -4074,6 +4076,7 @@ class OSDDaemon:
         out["osd"] = self.osd_id
         out["kernel_launches"] = bitsliced.launch_counts()
         out["k4_support"] = bitsliced.k4_support_counts()
+        out["k3_walk"] = bitsliced.k3_walk_counts()
         out["local_repair"] = ec_lrc.local_repair_counts()
         out["kernel_stages"] = bitsliced.launch_stages()
         out["host_perf_owner"] = self._profiler_reporter

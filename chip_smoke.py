@@ -1292,11 +1292,13 @@ def phase_deep_scrub(dev, rng) -> tuple[dict, dict]:
     return counts, report
 
 
-# Graph times of the two K3 rows before K3's redesign (PERF.md §6:
-# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W), the `earlier`
-# column of the K3 table
-K3_EARLIER_US = {"gf_encode_crc_acc (K3, one 512 KiB run)": 20.672,
-                 "gf_encode_crc_acc (K3, 2 runs, one odd-width)": 29.206}
+# Graph times of the two K3 rows before K3 walked ranges of tiles, one
+# thread block a tile (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB
+# HBM3 at 700 W), the `earlier` column of the K3 table
+K3_EARLIER_US = {"gf_encode_crc_acc (K3, one 512 KiB run)": 12.650,
+                 "gf_encode_crc_acc (K3, 2 runs, one odd-width)": 18.918}
+# K3 at the benchmark cell's call: 32 runs of 512 KiB
+K3_CELL_RUNS = 32
 
 
 def k3_block_table(dev, bs, gf, rng, rows) -> dict:
@@ -1306,8 +1308,10 @@ def k3_block_table(dev, bs, gf, rng, rows) -> dict:
     its XORs left to pile up while timed), and K2's hier entry at the
     same block as this run's control; each checked exactly against its
     plain version, then timed as the kernel rows are (graph replays).
-    Also the zero-fill of the L slots alone, and the two K3 kernel rows
-    beside their times before the redesign."""
+    Also the zero-fill of the L slots alone, K3 at the benchmark cell's
+    call (K3_CELL_RUNS runs of 512 KiB at B = 2 KiB, the walk's ranges of
+    31-32 tiles) beside its bound, and the two K3 kernel rows beside
+    their times before the walk."""
     from ceph_tpu_torch.ops import _build
     lib = _build.load()
     enc = bs.tables_tensor(gf.product_tables(gf.cauchy_rs_matrix(K, M)[K:]),
@@ -1364,13 +1368,39 @@ def k3_block_table(dev, bs, gf, rng, rows) -> dict:
               f"K2 hier {row['k2_hier_us']:8.3f} us  bound "
               f"{row['bound_us']:.3f} us", flush=True)
     print(f"# k3_table L zero-fill alone {fill_us:.3f} us", flush=True)
+    cell_data = torch.from_numpy(rng.integers(
+        0, 256, (K, K3_CELL_RUNS * run), dtype=np.uint8)).to(dev)
+    tiles = run // (4 * bs.FUSED_WB)
+    staged, cell_ends = bs._acc_launch_args([tiles] * K3_CELL_RUNS, dev)
+    torch.cuda.synchronize()
+    del staged
+    got = bs.fused_hier_acc_call(enc, cell_data, cell_ends, bs.FUSED_WB)
+    want = bs.fused_hier_acc_call_plain(enc, cell_data, cell_ends,
+                                        bs.FUSED_WB)
+    if not all(torch.equal(x, y) for x, y in zip(got, want)):
+        raise AssertionError("K3 at the cell's call differs from its plain "
+                             "version")
+    del got, want
+    n_cell = K3_CELL_RUNS * run
+    grid = bs.k3_launch(n_cell, 4 * bs.FUSED_WB, K, M, sms)
+    cell = {"runs": K3_CELL_RUNS, "run_bytes": run, "grid": grid,
+            "tiles_a_range": K3_CELL_RUNS * tiles / grid,
+            "us": graph_event_ms(lambda: bs.fused_hier_acc_call(
+                enc, cell_data, cell_ends, bs.FUSED_WB)) * 1e3,
+            "bound_us": bound(K * n_cell + M * n_cell
+                              + K3_CELL_RUNS * (K + M) * 8, 0)[0] * 1e3}
+    print(f"# k3_table cell {K3_CELL_RUNS} x {run} B runs grid={grid}  K3 "
+          f"{cell['us']:8.3f} us  bound {cell['bound_us']:.3f} us",
+          flush=True)
+    del cell_data
     earlier = [{"name": r["name"], "earlier_us": K3_EARLIER_US[r["name"]],
                 "us": r["ms"] * 1e3, "single_us": r["single_ms"] * 1e3,
                 "cold_us": r["cold_ms"] * 1e3, "bound_us": r["bound_ms"] * 1e3}
                for r in rows if r["name"] in K3_EARLIER_US]
     if len(earlier) != 2:
         raise AssertionError(f"K3 rows missing: {[r['name'] for r in rows]}")
-    return {"fill_us": fill_us, "by_block": by_block, "rows": earlier}
+    return {"fill_us": fill_us, "by_block": by_block, "cell": cell,
+            "rows": earlier}
 
 
 # Graph times of the K2 and K3 rows before K2's redesign (the final

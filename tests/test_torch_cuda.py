@@ -458,7 +458,15 @@ def test_plugin_on_card_matches_cpu(cuda_device):
     (8, 3, 512, [1500, 1, 700]),           # more blocks than the grid
     (8, 6, 512, [40, 9]),                  # m > 4: two packed groups
     (8, 3, 512, [0, 64, 5]),               # an empty first run
-    (5, 3, 96, [7, 2])])                   # odd pieces: two pad words
+    (5, 3, 96, [7, 2]),                    # odd pieces: two pad words
+    (8, 3, 512, [256] * 32),               # the benchmark's call
+    (8, 3, 512, [300, 500, 1000]),         # ranges of 6-7 over run ends
+    (8, 3, 512, [2000]),                   # a run of many ranges
+    (4, 4, 512, [64, 3]),                  # LRC's 4 x 4 generator shape
+    (8, 3, 256, [2000, 7]),                # K2's rows, two stages
+    (8, 3, 1024, [600, 5]),                # K2's rows, three stages
+    (77, 1, 512, [300]),                   # one stage of K2's rows
+    (60, 1, 512, [300])])                  # one stage of scrub rows
 def test_k3_matches_plain(cuda_device, k, m, wb, blocks):
     from ceph_tpu_torch.ec import gf
     from ceph_tpu_torch.ops import bitsliced as bs

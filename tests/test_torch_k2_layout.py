@@ -1,9 +1,10 @@
 """K2's host-side layout and grid (ops/bitsliced, pure, no card): the
 shapes K2 admits, its branch by shape and its grid rule.
 
-K2 runs K3's per-block body (csrc/gf_encode_crc_acc.cu).  Where K3's
-layout does not fit one block, K2 takes its narrow branch: one crc table
-the lanes share and no fold tables.  Every (k, m, B) that K2's earlier
+K2 runs the per-block body of csrc/gf_encode_crc_acc.cu, with the lane
+tables in the layout of a one-stage K3 walk in K2's rows.  Where that
+does not fit one block, K2 takes its narrow branch: one crc table the
+lanes share and no fold tables.  Every (k, m, B) that K2's earlier
 layout admitted (its formula below, kept as a literal) must still be
 admitted, and every point autotune's sweep took must stay legal.
 """
@@ -29,8 +30,8 @@ def _pad(block):
 
 
 def _wide_smem(m, k, block):
-    """K3's layout: nibble parity tables, 32 lane crc tables, the fold's
-    nibble tables, padded rows, run and distance."""
+    """The lane tables' layout: nibble parity tables, 32 lane crc
+    tables, the fold's nibble tables, padded rows, run and distance."""
     return 4 * (-(-m // 4) * k * 32 + 256 * 32 + 8 * 16 * 32 + 3 * 8 * 16
                 + (k + m) * (block // 4 + 32 * _pad(block))) + 16
 
@@ -59,11 +60,13 @@ def test_k2_admits_every_shape_it_admitted(block):
 
 
 def test_k2_branch_by_shape():
-    # the write path's shapes keep K3's layout, bytes for bytes
+    # the write path's shapes keep the lane tables, bytes for bytes one
+    # stage of K3's walk in K2's rows
     for k, m, block in ((8, 3, 2048), (8, 3, 1024), (8, 3, 4096),
                         (4, 2, 512), (10, 9, 128), (12, 4, 2048)):
         assert bs.k2_lane_tables(m, k, block)
-        assert bs._crc_smem_bytes(m, k, block) == bs.k3_smem(m, k, block)
+        assert bs._crc_smem_bytes(m, k, block) == \
+            bs._walk_smem(m, k, block, 1, False)
     assert bs._crc_smem_bytes(3, 8, 2048) == 75664
     # the old layout's shapes that need the narrow branch: at power-of-two
     # blocks, 45 shapes, all at 8 KiB with k + m >= 22
@@ -91,7 +94,7 @@ def test_k2_branch_by_shape():
                                        (20, 4, 8192), (28, 1, 7552)])
 def test_k2_grid_is_one_wave_over_its_layout(k, m, block):
     smem = bs._crc_smem_bytes(m, k, block) + bs.BLOCK_SMEM_RESERVED
-    per_sm = max(1, min(bs.K3_BLOCKS_PER_SM, 2048 // bs.K3_THREADS,
+    per_sm = max(1, min(bs.K2_BLOCKS_PER_SM, 2048 // bs.K2_THREADS,
                         bs.SM_SMEM // smem))
     for tiles in (1, 4, 256, per_sm * H100_SMS, 5000):
         grid = bs.k3_launch(tiles * block, block, k, m, H100_SMS, acc=False)
@@ -104,10 +107,10 @@ def test_k2_grid_main_shapes():
     # 8+3 x 512 KiB at 2 KiB: 256 blocks, one each; the flat 8 KiB row: 4
     assert bs.k3_launch(512 << 10, 2048, 8, 3, H100_SMS, acc=False) == 256
     assert bs.k3_launch(8 << 10, 2048, 8, 3, H100_SMS, acc=False) == 4
-    # K2's layout is K3's there, so is its grid
+    # three blocks an SM by its own launch bounds and layout (75,664 B)
     for n in (2048 * 407, 2048 * 1000):
         assert bs.k3_launch(n, 2048, 8, 3, H100_SMS, acc=False) == \
-            bs.k3_launch(n, 2048, 8, 3, H100_SMS)
+            min(n // 2048, 3 * H100_SMS)
     # the narrow branch keeps one block an SM
     assert bs.k3_launch(8192 * 500, 8192, 20, 4, H100_SMS, acc=False) == \
         H100_SMS

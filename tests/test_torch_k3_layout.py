@@ -1,18 +1,20 @@
-"""K3's layout, launch rule and per-block algorithm on the CPU.
+"""K3's layout, launch rule and walk on the CPU.
 
-`k3_smem`, `k3_launch`, `k3_pad`, `k3_chains` and `k3_ops`
-(ops/bitsliced) are the host's mirrors of csrc/gf_encode_crc_acc.cu:
-pure functions of the shapes, checked here over every accepted shape.
-`k3_model` is a numpy model of the kernel's per-block algorithm on the
-same operands the kernel receives — the packed parity's nibble tables
-and the 4x4 byte transpose, the lane-copied crc table, the staged rows with
-their pads, the interleaved crc chains and their chain operators, the
-per-lane fold operators and the base-256 advance tables of `k3_ops`,
-the run search, the XOR of every block into its run's slot, the grid
-walk of `k3_launch` — held bit-exact against Pallas kernel #4 in
-interpret mode (as tests/test_torch_acc.py reaches it) and against K3's
-plain version.  The kernel itself is held against its plain version on
-the card in tests/test_torch_cuda.py."""
+`k3_walk`, `k3_smem`, `k3_launch`, `k3_ranges`, `k3_pad`, `k3_chains`
+and `k3_ops` (ops/bitsliced) are the host's mirrors of
+csrc/gf_encode_crc_acc.cu: pure functions of the shapes, checked here
+over every accepted shape.  `k3_model` is a numpy model of the kernel's
+walk on the same operands the kernel receives — the ranges of
+`k3_ranges` over the grid of `k3_launch`, the staged rows with their
+pads (the scrub block's layout at 2 KiB, else K2's), the packed
+parity's nibble tables, its items' words (`walk_word`) and the 4x4
+byte transpose, the lane-copied crc table, the interleaved crc chains
+seeded with each row's running L and their chain operators, the
+per-lane fold operators, the XOR into a run's slot at its end and the
+base-256 advance of `k3_ops` at a range's end — held bit-exact against
+Pallas kernel #4 in interpret mode (as tests/test_torch_acc.py reaches
+it) and against K3's plain version.  The kernel itself is held against
+its plain version on the card in tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -100,38 +102,122 @@ def _apply_cols(cols: np.ndarray, x: np.ndarray) -> np.ndarray:
     return np.bitwise_xor.reduce(cols * bits, axis=-1)
 
 
+def _walk_layout(block: int, scrub: bool) -> tuple[int, int, int]:
+    """(words from one lane's piece to the next, words of a row, chains
+    a lane) of a row the walk stages: the scrub block's own layout, or
+    K2's (k3_pad)."""
+    if scrub:
+        return bs.K5_SCRUB_STRIDE, 32 * bs.K5_SCRUB_STRIDE, \
+            bs.K5_SCRUB_CHAINS
+    stride = block // 128 + bs.k3_pad(block)
+    return stride, 32 * stride, bs.k3_chains(block)
+
+
+def _staged_index(block: int, scrub: bool) -> np.ndarray:
+    """Where the copies put each word w of a block in a staged row: the
+    scrub block's 16-byte chunk v = w // 4 at word 20 * (v // 4) + 4 *
+    (v % 4), else w + (w // wpp) * pad."""
+    w = np.arange(block // 4)
+    if scrub:
+        v = w // 4
+        return bs.K5_SCRUB_STRIDE * (v // 4) + 4 * (v % 4) + w % 4
+    return w + (w // (block // 128)) * bs.k3_pad(block)
+
+
+def _walk_word(item: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """walk_word: the tile word and staged index of each parity item of
+    the scrub block (warp item i // 32 takes lane pieces a = 8 * (warp %
+    4) + lane // 4 and words c = 4 * (warp // 4) + lane % 4)."""
+    a = 8 * ((item >> 5) & 3) + ((item & 31) >> 2)
+    c = 4 * (item >> 7) + (item & 3)
+    return 16 * a + c, bs.K5_SCRUB_STRIDE * a + c
+
+
+def _tile_l(rows: np.ndarray, seeds: np.ndarray, block: int, scrub: bool,
+            tabs) -> np.ndarray:
+    """A_B . seed ^ L(tile) of each staged row: lane 0's first chain
+    starts from the row's running L, every other chain from 0, each word
+    XORed in whole before its four byte steps; then the chain operators
+    (chain c of `chains` is followed by (chains-1-c) * wpc words, which
+    k3_ops's chain operator j covers in j sub-pieces of wpp /
+    k3_chains(block) words) and the lane fold."""
+    ltab, fold, cnib = tabs
+    wpp = block // 128
+    stride, _, chains = _walk_layout(block, scrub)
+    wpc = wpp // chains
+    lanes = np.arange(32)
+    piece_idx = lanes[:, None] * stride + np.arange(wpp)[None, :]
+    crc = np.zeros((chains, rows.shape[0], 32), dtype=np.uint32)
+    crc[0, :, 0] = seeds
+    for t in range(wpc):
+        for c in range(chains):
+            x = rows[:, piece_idx[:, c * wpc + t]] ^ crc[c]
+            for _ in range(4):
+                x = ltab[((x & np.uint32(0xFF)) << np.uint32(5)) + lanes] \
+                    ^ (x >> np.uint32(8))
+            crc[c] = x
+    sub = wpp // bs.k3_chains(block)
+    lane_l = crc[chains - 1].copy()
+    for c in range(chains - 1):
+        lane_l ^= _apply_nibbles(cnib[(chains - 1 - c) * wpc // sub - 1],
+                                 crc[c])
+    return np.bitwise_xor.reduce(_apply_lane_nibbles(fold, lane_l), axis=1)
+
+
+def walk_schedule(run_ends: np.ndarray, ntiles: int, grid: int):
+    """The walk's flushes: for each thread block's range (k3_ranges), the
+    (run, tiles of the run after the range) of each XOR into the run's
+    slots, in order: 0 at a run end met inside the range, the distance
+    the range's end advances by otherwise."""
+    out = []
+    for t0, t1 in bs.k3_ranges(ntiles, grid):
+        run = int(np.searchsorted(run_ends, t0, side="right"))
+        flushes = []
+        for t in range(t0, t1):
+            if t + 1 == run_ends[run]:
+                flushes.append((run, 0))
+                if t + 1 < t1:
+                    run = int(np.searchsorted(run_ends, t + 1, side="right"))
+        if t1 < run_ends[run]:
+            flushes.append((run, int(run_ends[run]) - t1))
+        out.append(((t0, t1), flushes))
+    return out
+
+
 def k3_model(tables: np.ndarray, chunks: np.ndarray, run_ends: np.ndarray,
              block: int, sm_count: int = H100_SMS):
-    """K3's algorithm, block by block, on the kernel's operands; returns
-    (parity (m, n) uint8, L (nruns, k+m) int64)."""
+    """K3's walk on the kernel's operands, thread block by thread block,
+    tile by tile; returns (parity (m, n) uint8, L (nruns, k+m) int64)."""
     m, k, _ = tables.shape
     n = chunks.shape[1]
     r_tot = k + m
+    walk = bs.k3_walk(m, k, block)
     W, wpp, pad = block // 4, block // 128, bs.k3_pad(block)
-    S = W + 32 * pad
+    _, S, _ = _walk_layout(block, walk.scrub)
     groups = -(-m // 4)
     T = _nibble_packed(tables)
-    ltab = _lane_crc_table()
     ops = bs.k3_ops(block)
-    fold = _nibbles(ops[:1024].reshape(32, 32).T)      # [lane, i, v]
-    cnib = _nibbles(ops[1024:bs.K3_OP_COLS].reshape(bs.K3_MAX_CHAINS - 1,
-                                                    32))
+    tabs = (_lane_crc_table(), _nibbles(ops[:1024].reshape(32, 32).T),
+            _nibbles(ops[1024:bs.K3_OP_COLS].reshape(bs.K3_MAX_CHAINS - 1,
+                                                     32)))
     digits = ops[bs.K3_OP_COLS:].reshape(bs.K3_DIGITS, 256, 32)
-    chains = bs.k3_chains(block)
-    wpc = wpp // chains
     words = np.ascontiguousarray(chunks).view("<u4")   # (k, n/4)
-    pw = np.arange(W) + (np.arange(W) // wpp) * pad    # staged word index
-    lanes = np.arange(32)
-    piece_idx = lanes[:, None] * (wpp + pad) + np.arange(wpp)[None, :]
+    staged = _staged_index(block, walk.scrub)
+    if walk.scrub:
+        w_of, pw_of = _walk_word(np.arange(W))        # the parity's items
+    else:
+        w_of = np.arange(W)
+        pw_of = w_of + (w_of // wpp) * pad
     parity = np.zeros((m, n // 4), dtype=np.uint32)
     lacc = np.zeros((len(run_ends), r_tot), dtype=np.uint64)
-    ntiles = n // block
     grid = bs.k3_launch(n, block, k, m, sm_count)
-    for b in range(grid):
-        for tile in range(b, ntiles, grid):
+    for (t0, t1), flushes in walk_schedule(run_ends, n // block, grid):
+        L = np.zeros(r_tot, dtype=np.uint32)          # the running L
+        flushes = iter(flushes)
+        for t in range(t0, t1):
             rows = np.full((r_tot, S), SENTINEL, dtype=np.uint32)
-            rows[:k, pw] = words[:, tile * W:(tile + 1) * W]
-            x = rows[:k, pw]                                       # (k, W)
+            rows[:k, staged] = words[:, t * W:(t + 1) * W]
+            x = rows[:k, pw_of]                       # (k, W) by item
             for g in range(groups):
                 acc = np.zeros((W, 4), dtype=np.uint32)
                 for j in range(k):
@@ -140,31 +226,22 @@ def k3_model(tables: np.ndarray, chunks: np.ndarray, run_ends: np.ndarray,
                         hi = _nibble(x[j], 2 * byte + 1)
                         acc[:, byte] ^= T[g, j, lo] ^ T[g, j, 16 + hi]
                 acc = _transpose4(acc)
-                for t in range(min(4, m - 4 * g)):
-                    rows[k + 4 * g + t, pw] = acc[:, t]
-                    parity[4 * g + t, tile * W:(tile + 1) * W] = acc[:, t]
-            run = int(np.searchsorted(run_ends, tile, side="right"))
-            dist = int(run_ends[run]) - 1 - tile
-            # each lane: `chains` chains over consecutive sub-pieces,
-            # the word XORed in first, then joined by the chain operators
-            crc = np.zeros((chains, r_tot, 32), dtype=np.uint32)
-            for t in range(wpc):
-                for c in range(chains):
-                    x = rows[:, piece_idx[:, c * wpc + t]] ^ crc[c]
-                    for _ in range(4):
-                        x = ltab[((x & np.uint32(0xFF)) << np.uint32(5))
-                                 + lanes] ^ (x >> np.uint32(8))
-                    crc[c] = x
-            lane_l = crc[chains - 1].copy()
-            for c in range(chains - 1):
-                lane_l ^= _apply_nibbles(cnib[chains - 2 - c], crc[c])
-            lval = np.bitwise_xor.reduce(_apply_lane_nibbles(fold, lane_l),
-                                         axis=1)
+                for r in range(min(4, m - 4 * g)):
+                    rows[k + 4 * g + r, pw_of] = acc[:, r]
+                    parity[4 * g + r, t * W + w_of] = acc[:, r]
+            L = _tile_l(rows, L, block, walk.scrub, tabs)
+            if t + 1 in run_ends:                     # a run ends here
+                run, dist = next(flushes)
+                assert dist == 0 and run_ends[run] == t + 1
+                lacc[run] ^= L.astype(np.uint64)
+                L[:] = 0
+        for run, dist in flushes:                     # the range's end
+            assert dist == int(run_ends[run]) - t1 > 0
             for i in range(bs.K3_DIGITS):
                 c = (dist >> (8 * i)) & 255
                 if c:
-                    lval = _apply_cols(digits[i, c], lval)
-            lacc[run] ^= lval.astype(np.uint64)
+                    L = _apply_cols(digits[i, c], L)
+            lacc[run] ^= L.astype(np.uint64)
     return parity.view(np.uint8).reshape(m, n), lacc.astype(np.int64)
 
 
@@ -180,19 +257,43 @@ BLOCKS = (128, 256, 384, 512, 1024, 2048, 4096, 8192)
 
 
 def _smem_formula(m, k, block):
+    """K3's admission: one stage of K2's rows with the lane tables."""
     pad = 2 if (block // 128) % 2 else 1
     return 4 * (-(-m // 4) * k * 32 + 8192 + 4480
                 + (k + m) * (block // 4 + 32 * pad)) + 16
 
 
+def _walk_formula(m, k, block, depth, scrub):
+    row = 640 if scrub else block // 4 + 32 * (2 if (block // 128) % 2 else 1)
+    return 4 * (-(-m // 4) * k * 32 + 8192 + 4480
+                + (depth * k + m) * row) + 16
+
+
+def _walk_rule(m, k, block):
+    """The walk's shape as its rule says: two blocks an SM with two
+    stages, else one with three, two or one, each in the scrub block's
+    layout first where the block is 2 KiB."""
+    for per_sm, depth in ((2, 2), (1, 3), (1, 2), (1, 1)):
+        for scrub in (True, False) if block == 2048 else (False,):
+            smem = _walk_formula(m, k, block, depth, scrub)
+            if smem <= 232448 and per_sm * (smem + 1024) <= 233472:
+                return per_sm, depth, scrub, smem
+    return None
+
+
 @pytest.mark.parametrize("block", BLOCKS)
 def test_k3_smem_accepts_exactly_the_shapes_within_the_limit(block):
-    """Every (k, m) whose layout fits one block's 227 KB is accepted with
-    the layout's exact size; the next k past the limit raises."""
+    """Every (k, m) whose one-stage layout fits one block's 227 KB is
+    accepted, at the walk shape the rule gives, with that layout's exact
+    size; the next k past the limit raises.  Every accepted shape has at
+    most 512 rows: one lane of K3's 16 warps for each row's running L."""
     for m in range(1, 33):
         k = 1
         while _smem_formula(m, k, block) <= bs.SMEM_LIMIT:
-            assert bs.k3_smem(m, k, block) == _smem_formula(m, k, block)
+            walk = bs.k3_walk(m, k, block)
+            assert tuple(walk) == _walk_rule(m, k, block)
+            assert bs.k3_smem(m, k, block) == walk.smem <= bs.SMEM_LIMIT
+            assert k + m <= 32 * (bs.K3_THREADS // 32)
             k += 1
         with pytest.raises(ValueError, match="shared memory"):
             bs.k3_smem(m, k, block)
@@ -200,13 +301,30 @@ def test_k3_smem_accepts_exactly_the_shapes_within_the_limit(block):
 
 def test_k3_smem_main_shapes_and_edges():
     """The write path's 8+3 at the autotuner's blocks, the card tests'
-    10+4 and 8+6, and the CPU tests' 512-byte block; blocks that are no
-    multiple of 128 raise."""
-    assert bs.k3_smem(3, 8, 2048) == 75664     # 1+32+17.5+23.4 KiB + 16 B
+    10+4, 8+6 and 4+4, LRC's 4+4 generator, and the CPU tests' 512-byte
+    block; blocks that are no multiple of 128 raise."""
+    # 50.5 KiB of tables, two stages of 8 scrub rows, 3 parity rows
+    assert bs.k3_walk(3, 8, 2048) == (2, 2, True, 100368)
+    assert bs.k3_smem(3, 8, 2048) == 4 * (8 * 32 + 12672 + 19 * 640) + 16
+    assert bs.k3_walk(3, 8, 1024) == (2, 2, False, 73616)
+    assert bs.k3_walk(3, 8, 4096) == (1, 3, False, 165776)
     for wb in (256, 512, 1024):                # autotune.SWEEP_WBS
-        for k, m in ((8, 3), (10, 4), (8, 6), (4, 2)):
+        for k, m in ((8, 3), (10, 4), (8, 6), (4, 2), (4, 4)):
             assert bs.k3_smem(m, k, 4 * wb) <= bs.SMEM_LIMIT
-    assert bs.k3_smem(2, 4, 512) == 4 * (4 * 32 + 8192 + 4480 + 6 * 160) + 16
+            assert bs.k3_walk(m, k, 4 * wb).depth >= 2
+    assert bs.k3_smem(2, 4, 512) == 4 * (4 * 32 + 8192 + 4480 + 10 * 160) + 16
+    # where two scrub stages fit no block, K2's rows take the ring; where
+    # neither fits, one stage of scrub rows
+    assert bs.k3_walk(1, 36, 2048) == (1, 2, False,
+                                       _walk_formula(1, 36, 2048, 2, False))
+    assert bs.k3_walk(1, 60, 2048) == (1, 1, True,
+                                       _walk_formula(1, 60, 2048, 1, True))
+    # at the admission edge one stage of K2's rows is K2's own block
+    k = 1
+    while _smem_formula(1, k + 1, 2048) <= bs.SMEM_LIMIT:
+        k += 1
+    assert bs.k3_walk(1, k, 2048) == (1, 1, False, _smem_formula(1, k, 2048))
+    assert bs.k3_smem(1, k, 2048) == bs._crc_smem_bytes(1, k, 2048)
     for bad in (0, 64, 200, -128):
         with pytest.raises(ValueError, match="multiple of 128"):
             bs.k3_smem(3, 8, bad)
@@ -228,32 +346,93 @@ def test_k3_pad_puts_every_lane_in_its_own_bank(block):
         assert len(set((addr % 32).tolist())) == 32
 
 
+def test_k3_walk_words_meet_no_bank_twice():
+    """In the scrub block's layout the parity's items are a permutation
+    of the 512 words, staged where the copies put them, and each warp's
+    32 items read and write 32 distinct banks; the crc's quarter-warps
+    read their lanes' 16-byte chunks from 8 distinct 16-byte bank
+    groups."""
+    w, pw = _walk_word(np.arange(512))
+    assert sorted(w.tolist()) == list(range(512))
+    np.testing.assert_array_equal(pw, _staged_index(2048, True)[w])
+    for warp in range(16):
+        assert len(set((pw[32 * warp:32 * warp + 32] % 32).tolist())) == 32
+    for i in range(4):                         # a lane's i-th 16-byte chunk
+        for q in range(4):
+            lanes = np.arange(8 * q, 8 * q + 8)
+            groups = (lanes * bs.K5_SCRUB_STRIDE + 4 * i) // 4 % 8
+            assert len(set(groups.tolist())) == 8
+
+
 @pytest.mark.parametrize("k,m,block", [(8, 3, 2048), (8, 3, 4096),
                                        (10, 4, 1024), (4, 2, 512),
-                                       (8, 6, 2048)])
+                                       (8, 6, 2048), (4, 4, 2048)])
 def test_k3_launch_covers_every_tile_once_in_one_wave(k, m, block):
-    """The grid is min(tiles, one wave); its stride walk takes every tile
-    exactly once; the wave is what the launch bounds, the threads and
-    the shared memory keep resident."""
-    smem = bs.k3_smem(m, k, block) + bs.BLOCK_SMEM_RESERVED
-    per_sm = min(bs.K3_BLOCKS_PER_SM, 2048 // bs.K3_THREADS,
-                 bs.SM_SMEM // smem)
-    assert per_sm >= 1
+    """The grid is min(tiles, one wave of the walk shape's blocks an
+    SM); its ranges are contiguous, in order, none empty, balanced to
+    within one tile, and take every tile exactly once."""
+    per_sm = bs.k3_walk(m, k, block).per_sm
     for sms in (1, 3, H100_SMS):
-        for tiles in (1, 2, 5, 255, 256, 407, 2049):
-            blocks = bs.k3_launch(tiles * block, block, k, m, sms)
-            assert blocks == min(tiles, per_sm * sms)
-            seen = np.zeros(tiles, dtype=np.int64)
-            for b in range(blocks):
-                seen[b::blocks] += 1
-            assert (seen == 1).all()
+        for tiles in (1, 2, 5, 255, 256, 407, 2049, 8192):
+            grid = bs.k3_launch(tiles * block, block, k, m, sms)
+            assert grid == min(tiles, per_sm * sms)
+            ranges = bs.k3_ranges(tiles, grid)
+            assert len(ranges) == grid and ranges[0][0] == 0
+            assert all(a < b for a, b in ranges)
+            assert all(ranges[i][1] == ranges[i + 1][0]
+                       for i in range(grid - 1))
+            assert ranges[-1][1] == tiles
+            sizes = {b - a for a, b in ranges}
+            assert max(sizes) - min(sizes) <= 1
+
 
 def test_k3_launch_main_path():
-    """A 512 KiB run in 2 KiB blocks is one block a tile on the H100
-    (three resident an SM); the two-run row's 407 tiles take one wave of
-    396 blocks."""
+    """The cell's 32 runs of 512 KiB in 2 KiB tiles: 264 thread blocks
+    (two an SM), 31 or 32 tiles each; a 512 KiB run alone and a
+    one-tile drain get ranges of one tile."""
+    assert bs.k3_launch(32 * (512 << 10), 2048, 8, 3, H100_SMS) == 264
+    assert {b - a for a, b in bs.k3_ranges(8192, 264)} == {31, 32}
     assert bs.k3_launch(512 << 10, 2048, 8, 3, H100_SMS) == 256
-    assert bs.k3_launch(407 * 2048, 2048, 8, 3, H100_SMS) == 396
+    assert bs.k3_launch(407 * 2048, 2048, 8, 3, H100_SMS) == 264
+    assert bs.k3_launch(2048, 2048, 8, 3, H100_SMS) == 1
+
+
+def test_k3_walk_flushes_at_the_cell():
+    """The walk's atomics at the cell's shape: each row gets one XOR a
+    run end (32) and one a range that ends inside a run (262 of the 264
+    ranges: two end on a run end), 294 a row, 3,234 at 8+3, against one
+    a tile a row in a per-tile design (90,112); a range flushes at most
+    twice."""
+    ends = np.arange(1, 33) * 256
+    sched = walk_schedule(ends, 8192, 264)
+    flushes = [f for _, fl in sched for f in fl]
+    assert len(flushes) == 294 and 11 * len(flushes) == 3234
+    assert sum(d == 0 for _, d in flushes) == 32
+    assert {r for r, _ in flushes} == set(range(32))
+    assert max(len(fl) for _, fl in sched) == 2
+
+
+@pytest.mark.parametrize("n,walked", [(32 * (512 << 10), (8192, 264)),
+                                      (2048, (1, 1))])
+def test_k3_walk_counts_at_the_cell_and_a_one_tile_drain(n, walked):
+    """k3_walk_counts() adds a launch's tiles and ranges from the shapes
+    on the host, stays apart from launch_counts() and is zeroed by the
+    same reset."""
+    saved = list(bs._walk)
+    try:
+        bs.reset_launch_counts()
+        assert bs.k3_walk_counts() == {"launches": 0, "tiles": 0,
+                                       "ranges": 0}
+        bs._count_k3_walk(n, 2048, 8, 3, H100_SMS)
+        bs._count_k3_walk(n, 2048, 8, 3, H100_SMS)
+        assert bs.k3_walk_counts() == {"launches": 2,
+                                       "tiles": 2 * walked[0],
+                                       "ranges": 2 * walked[1]}
+        assert "k3_walk" not in bs.launch_counts()
+        bs.reset_launch_counts()
+        assert bs.k3_walk_counts()["tiles"] == 0
+    finally:
+        bs._walk[:] = saved
 
 
 def test_k3_chains_divide_the_piece():
@@ -347,7 +526,8 @@ def _pallas_acc(mat, chunks, ntiles_run, tile, wb):
     (6, 2, 64, 1, [3, 0, 1, 5], H100_SMS),   # an empty run, a one-block run
     (3, 5, 128, 1, [2, 1, 4], 1),           # two packed groups; blocks walk
     (4, 2, 64, 4, [3, 1, 2], H100_SMS),     # tests/test_torch_acc.py's launch
-    (4, 4, 128, 2, [1, 2, 1], 2)])
+    (4, 4, 128, 2, [1, 2, 1], 2),
+    (5, 3, 512, 1, [2, 3, 1], 1)])          # the scrub block: ranges of 3
 def test_k3_model_matches_pallas_acc(k, m, wb, blocks_per_tile, ntiles_run,
                                      sms):
     block = 4 * wb
@@ -367,10 +547,19 @@ def test_k3_model_matches_pallas_acc(k, m, wb, blocks_per_tile, ntiles_run,
 
 @pytest.mark.parametrize("k,m,block,blocks,sms", [
     (8, 3, 2048, [3, 2], H100_SMS),          # the write path's shape
-    (8, 3, 1024, [1, 0, 4], 1),              # one thread block walks all
+    (8, 3, 1024, [1, 0, 4], 1),              # two thread blocks walk all
     (8, 6, 512, [0, 2, 1], H100_SMS),        # m > 4, an empty first run
     (10, 4, 4096, [2], 1),
-    (5, 3, 384, [2, 3], 2)])                 # odd pieces: two pad words
+    (5, 3, 384, [2, 3], 2),                  # odd pieces: two pad words
+    # ranges of 6 and 5 tiles: a range over a run end, ranges ending
+    # inside runs, an empty run, one-tile runs, more tiles than the grid
+    (8, 3, 2048, [3, 0, 1, 5, 2], 1),
+    (4, 4, 2048, [9, 14], 1),                # four parity rows: one group
+    (8, 6, 2048, [7, 1], 1),                 # two groups in scrub rows
+    (4, 2, 128, [600], 1),                   # an advance of two digits
+    (36, 1, 2048, [4], 1),                   # K2's rows at 2 KiB
+    (60, 1, 2048, [3], 1),                   # one stage of scrub rows
+    (77, 1, 2048, [2], 1)])                  # one of K2's: the edge
 def test_k3_model_matches_plain(k, m, block, blocks, sms):
     mat = tgf.cauchy_rs_matrix(k, m)[k:]
     rng = np.random.default_rng(block + k + m)

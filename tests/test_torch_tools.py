@@ -324,6 +324,7 @@ def test_ceph_cli_daemon_folds_multiword_prefixes(tmp_path, capsys):
                    for st in prof["kernel_stages"].values())
         assert set(prof["k4_support"]) == {"launches", "rows_looked_up",
                                            "rows_dense"}
+        assert prof["k3_walk"] == {"launches": 0, "tiles": 0, "ranges": 0}
         assert set(prof["local_repair"]) == {
             "helper_rows", "rebuilt_rows", "plans_built", "plan_hits"}
         assert tcli.main(["daemon", asok, "launch", "queue",
